@@ -1,23 +1,38 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`nerf_from_image_tpu_torch`) on one card.
 
-Drives the port's main path, the flagship render forward, at bench.py's
-operating point: the full-width generator (latent 512, 256^2 triplanes of
-32 channels, 10 attention values) with random weights from a seed,
-batch 8, 128x128 rays, 64 coarse + 64 fine samples, camera at z = 2.0,
-focal 1.2, bfloat16 activations. Phases, each printed as one JSON line:
+Drives the port's two paths at full width with random weights from a
+seed (latent 512, 256^2 triplanes of 32 channels, 10 attention values,
+bfloat16 activations, batch 8, 128x128 rays, 64 coarse + 64 fine
+samples):
 
-  device   the card, its power limit, the precision settings
-  build    nvcc builds every kernel of the path
-  kernel   each kernel against its plain PyTorch version on the points of
-           one flagship coarse pass; its time, bound and library yardstick
-  model    the full-width generator is built
-  slice    map -> synthesize -> render through the kernels (launch counts
-           reset just before and read just after), output checks, the same
-           render with the plain sampler, ms per render and rays/s
-  profile  the two stages (map + synthesize, render) timed with CUDA
-           events; one forward traced with torch.profiler: device busy
-           time, its idle share of the traced wall time, costliest kernels
+- the render forward at bench.py's operating point (camera at z = 2.0,
+  focal 1.2);
+- the hybrid-inversion refinement step in the p3d_car geometry (scene
+  range 1.4, black background, flipped perspective camera with z0 and
+  the pose optimized): render -> VGG LPIPS on the image and 15 random
+  affine crops -> backward to the latent and the camera -> Adam ->
+  projection, against a target rendered from a second latent and a known
+  camera.
+
+Phases, each printed as one JSON line:
+
+  device     the card, its power limit, the precision settings
+  build      nvcc builds every kernel source, all at once
+  kernel     each kernel (B1, B2, B3 forward, B3 backward) against its
+             plain PyTorch version at the shapes its path gives it; its
+             time, bound and library yardstick
+  model      the full-width generator is built
+  slice      map -> synthesize -> render through the kernels (launch counts
+             reset just before and read just after), output checks, the same
+             render with the plain sampler, ms per render and rays/s
+  inversion  run_inversion through the kernels (counts reset just before
+             and read just after), ms per step, the per-step metrics, and
+             one step against the same step on the plain sampler and warp
+  profile    the render's stages timed with CUDA events; one render and
+             one inversion step traced with torch.profiler: device busy
+             time, its idle share of the traced wall time, costliest
+             kernels
 
 Then a line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Any failure raises and the script exits non-zero; without CUDA it exits
@@ -28,6 +43,7 @@ non-zero before any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -37,12 +53,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nerf_from_image_tpu_torch.core import augment
 from nerf_from_image_tpu_torch.core import rays as rays_lib
+from nerf_from_image_tpu_torch.invert import optimizer as inv
 from nerf_from_image_tpu_torch.models.generator import Generator
+from nerf_from_image_tpu_torch.models.lpips import LPIPS
 from nerf_from_image_tpu_torch.ops import cuda_build
 from nerf_from_image_tpu_torch.ops import triplane
 from nerf_from_image_tpu_torch.ops import triplane_cuda
+from nerf_from_image_tpu_torch.ops import warp
 from nerf_from_image_tpu_torch.render.renderer import normalize, render
+from nerf_from_image_tpu_torch.utils import convert
 
 # bench.py's operating point.
 BATCH = 8
@@ -70,8 +91,41 @@ KERNEL_ATOL = KERNEL_RTOL = 1e-2
 # and still fails on any wrong texel, plane or axis.
 RENDER_ATOL = 2e-2
 
+# B2 against its plain version, on float32 copies of the same bf16 planes:
+# both add the same float32 products, the kernel with atomics in another
+# order, so the sums agree to float32 rounding of the largest partial sums;
+# 1e-4 of the largest value leaves room for that and fails on any wrong
+# tap, weight, plane, axis or clamp.
+GRAD_RTOL = 1e-4
+# B3 forward: the same float32 formula per pixel (the kernel may fuse a
+# multiply-add); the crops are of values in [-1, 1].
+WARP_ATOL = 1e-5
+# B3 backward: each image pixel sums the float32 products of up to 60
+# crop-pixel taps, the kernel with atomics in another order.
+WARP_GRAD_RTOL = 1e-5
+
+# The inversion: p3d_car's geometry (nerf_from_image_tpu/config.py:181)
+# and the reference's refinement settings.
+INV_CFG = inv.InversionConfig(
+    resolution=RES, depth_samples_per_ray=SAMPLES, scene_range=1.4,
+    white_background=False, camera_flipped=True, loss_type='vgg',
+    num_augmentations=15, optimize_pose=True)
+INV_STEPS = 5  # steps of the driven run, and timed steps after a warm-up
+# One step with the kernels against the same step on the plain sampler and
+# warp: B1 and B2 differ from their plain versions by one bf16 rounding of
+# a feature or a dplanes texel and by float32 summation order. Those
+# differences pass through the bf16 synthesis backward and move the fine
+# depths of a few rays, so loss and gradients drift at the level of bf16
+# noise, far below what a wrong tap, plane, axis or sign gives (order 1).
+STEP_LOSS_RTOL = 1e-2  # |loss_k - loss_p| / |loss_p|
+STEP_GRAD_RTOL = 5e-2  # ||g_k - g_p|| / ||g_p||, for z and R
+
 TRIPLANE_TPU_KERNEL = 'nerf_from_image_tpu/ops/pallas/triplane_window.py:282'
 TRIPLANE_SOURCE = 'nerf_from_image_tpu_torch/ops/csrc/triplane_sample.cu'
+GRAD_TPU_KERNEL = 'nerf_from_image_tpu/ops/pallas/triplane_window.py:305'
+GRAD_SOURCE = 'nerf_from_image_tpu_torch/ops/csrc/triplane_sample_grad.cu'
+WARP_TPU_KERNEL = 'nerf_from_image_tpu/ops/pallas/warp.py:73'
+WARP_SOURCE = 'nerf_from_image_tpu_torch/ops/csrc/warp.cu'
 
 
 def emit(phase: str, started: float, **fields) -> None:
@@ -149,12 +203,38 @@ def device_phase() -> dict:
 
 def build_phase() -> None:
     started = time.perf_counter()
-    cuda_build.build([triplane_cuda.KERNEL])
-    ptxas = [line.strip() for line in
-             cuda_build.build_log.get(triplane_cuda.KERNEL, '').splitlines()
-             if 'registers' in line or 'spill' in line]
+    sources = [triplane_cuda.KERNEL, triplane_cuda.GRAD_KERNEL, warp.KERNEL]
+    cuda_build.build(sources)
+    ptxas = {name: [line.strip() for line in
+                    cuda_build.build_log.get(name, '').splitlines()
+                    if 'registers' in line or 'spill' in line]
+             for name in sources}
     emit('build', started, nvcc_seconds=cuda_build.build_seconds,
          ptxas=ptxas)
+
+
+def bound(bytes_moved: float, flops: float) -> dict:
+    """The least time for the work: bytes over the memory rate or
+    operations over the float32 rate, whichever is larger."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / F32_FLOPS * 1e3
+    return {'bytes': bytes_moved, 'flops': flops, 'bytes_ms': bytes_ms,
+            'flops_ms': flops_ms, 'bound_ms': max(bytes_ms, flops_ms),
+            'bound_by': 'bytes' if bytes_ms >= flops_ms else 'operations'}
+
+
+def row(name: str, source: str, replaces: str, max_err: float, ms: float,
+        plain_ms: float, library_ms: float, b: dict) -> dict:
+    return {'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'launches': None, 'max_abs_err': max_err,
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b['bound_ms'],
+            'bound_by': b['bound_by'], 'library_ms': library_ms}
+
+
+def rel_max(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |a - ref| / max |ref|."""
+    return float((a.float() - ref.float()).abs().max() /
+                 ref.float().abs().max().clamp_min(1e-30))
 
 
 def kernel_phase() -> dict:
@@ -207,22 +287,13 @@ def kernel_phase() -> dict:
     bytes_moved = (coords.numel() * coords.element_size() +
                    out.numel() * out.element_size() +
                    texels * triplane_cuda.CHANNELS * planes_cl.element_size())
-    flops = points * 3 * 4 * triplane_cuda.CHANNELS * 2
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / F32_FLOPS * 1e3
-    bound_ms = max(bytes_ms, flops_ms)
+    b = bound(bytes_moved, points * 3 * 4 * triplane_cuda.CHANNELS * 2)
     emit('kernel', started, name=triplane_cuda.KERNEL, points=points,
          max_abs_err=max_err, mean_abs_err=mean_err, atol=KERNEL_ATOL,
          rtol=KERNEL_RTOL, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-         library_max_abs_err=library_err, bytes=bytes_moved,
-         touched_texels=texels, flops=flops, bound_ms=bound_ms,
-         bytes_ms=bytes_ms, flops_ms=flops_ms)
-    return {'name': triplane_cuda.KERNEL, 'route': 'cuda',
-            'source': TRIPLANE_SOURCE, 'replaces': TRIPLANE_TPU_KERNEL,
-            'launches': None, 'max_abs_err': max_err, 'ms': ms,
-            'plain_ms': plain_ms, 'bound_ms': bound_ms,
-            'bound_by': 'bytes' if bytes_ms >= flops_ms else 'operations',
-            'library_ms': library_ms}
+         library_max_abs_err=library_err, touched_texels=texels, **b)
+    return row(triplane_cuda.KERNEL, TRIPLANE_SOURCE, TRIPLANE_TPU_KERNEL,
+               max_err, ms, plain_ms, library_ms, b)
 
 
 def slice_phase(rows: dict):
@@ -290,9 +361,33 @@ def slice_phase(rows: dict):
     return gen, z, cam, focal
 
 
-def profile_phase(gen, z, cam, focal) -> None:
-    """Device time of one render, by stage and by kernel."""
+def trace(fn) -> dict:
+    """One call of `fn` under torch.profiler: wall time, device busy time,
+    its idle share and the costliest kernels."""
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(
+        (e for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA and
+         e.self_device_time_total > 0),
+        key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {'profiled_wall_ms': wall_ms, 'device_busy_ms': busy_ms,
+            'idle_share': 1.0 - busy_ms / wall_ms,
+            'kernel_launches': sum(e.count for e in kernels),
+            'top_kernels': [{'name': e.key[:100], 'count': e.count,
+                             'device_ms': e.self_device_time_total / 1e3}
+                            for e in kernels[:12]]}
+
+
+def profile_phase(gen, z, cam, focal, inversion_step) -> None:
+    """Device time of one render, by stage and by kernel, and of one
+    inversion step."""
     started = time.perf_counter()
 
     @torch.no_grad()
@@ -307,34 +402,343 @@ def profile_phase(gen, z, cam, focal) -> None:
     state = synthesize()
     stages = {'map + synthesize': time_cuda(synthesize, 5, 1),
               'render': time_cuda(lambda: render_state(state), 5, 1)}
+    render_trace = trace(lambda: render_state(synthesize()))
+    emit('profile', started, stage_ms=stages, **render_trace,
+         inversion_step=trace(inversion_step))
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        render_state(synthesize())
+
+def triplane_grad_phase() -> dict:
+    """B2 against its plain version on the points of one flagship coarse
+    pass; returns its row."""
+    started = time.perf_counter()
+    dev = torch.device('cuda')
+    coords = coarse_coords(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    r = GEN_KWARGS['img_resolution']
+    c = triplane_cuda.CHANNELS
+    planes_cl = torch.randn((BATCH, 3, r, r, c), generator=gen,
+                            device=dev).to(torch.bfloat16)
+    grad_out = torch.randn((BATCH, coords.shape[1], c), generator=gen,
+                           device=dev).to(torch.bfloat16)
+
+    dplanes, dcoords = triplane_cuda.launch_grad_raw(planes_cl, coords,
+                                                     grad_out)
+    torch.cuda.synchronize()
+    # The plain version on float32 copies of the same texels, so that both
+    # give float32 sums.
+    ref_planes, ref_coords = triplane.sample_triplane_grad_plain(
+        planes_cl.float(), coords, grad_out)
+    err_planes = rel_max(dplanes, ref_planes)
+    err_coords = rel_max(dcoords, ref_coords)
+    max_err = max(float((dplanes - ref_planes).abs().max()),
+                  float((dcoords - ref_coords).abs().max()))
+    if (err_planes > GRAD_RTOL or err_coords > GRAD_RTOL or
+            not torch.isfinite(dplanes).all() or
+            not torch.isfinite(dcoords).all()):
+        raise AssertionError(f'triplane grad kernel disagrees with its plain '
+                             f'version: dplanes {err_planes}, dcoords '
+                             f'{err_coords} (relative to the largest)')
+    del ref_planes, ref_coords
+
+    ms = time_cuda(lambda: triplane_cuda.launch_grad_raw(planes_cl, coords,
+                                                         grad_out), 10)
+    plain_ms = time_cuda(lambda: triplane.sample_triplane_grad_plain(
+        planes_cl, coords, grad_out), 3, 1)
+
+    # Yardstick only: the backward of F.grid_sample (border,
+    # align_corners=True) to the float32 planes and the grid, the same
+    # texels, with the mean over the three planes.
+    n = coords.shape[1]
+    planes_cf = planes_cl.permute(0, 1, 4, 2, 3).reshape(
+        BATCH * 3, c, r, r).float().contiguous().requires_grad_()
+    grid = torch.stack([coords[..., list(axes)]
+                        for axes in triplane.PLANE_AXES], dim=1)
+    grid = grid.reshape(BATCH * 3, 1, n, 2).requires_grad_()
+    feats = F.grid_sample(planes_cf, grid, mode='bilinear',
+                          padding_mode='border', align_corners=True)
+    feats = feats.reshape(BATCH, 3, c, n).mean(dim=1)
+    cotangent = grad_out.float().transpose(1, 2)
+    library_ms = time_cuda(lambda: torch.autograd.grad(
+        feats, (planes_cf, grid), cotangent, retain_graph=True), 5)
+    del feats, planes_cf, grid, cotangent
+
+    points = BATCH * n
+    texels = touched_texels(planes_cl, coords)
+    bytes_moved = (coords.numel() * 4 + grad_out.numel() * 2 +
+                   texels * c * 2 + dplanes.numel() * 4 + dcoords.numel() * 4)
+    # Per point, plane and channel: 4 weighted cotangents added (8), two
+    # tap differences blended and scaled per axis (10), times g and summed
+    # (4).
+    flops = points * 3 * c * 22
+    b = bound(bytes_moved, flops)
+    emit('kernel', started, name=triplane_cuda.GRAD_KERNEL, points=points,
+         dplanes_rel_err=err_planes, dcoords_rel_err=err_coords,
+         max_abs_err=max_err, rtol=GRAD_RTOL, ms=ms, plain_ms=plain_ms,
+         library_ms=library_ms, touched_texels=texels, **b)
+    return row(triplane_cuda.GRAD_KERNEL, GRAD_SOURCE, GRAD_TPU_KERNEL,
+               max_err, ms, plain_ms, library_ms, b)
+
+
+def warp_phase() -> list:
+    """B3 forward and backward against their plain versions at the
+    inversion's shapes: 8 images of 3 x 128^2 into 15 crops each. Returns
+    their two rows."""
+    started = time.perf_counter()
+    dev = torch.device('cuda')
+    n_aug = INV_CFG.num_augmentations
+    gen = torch.Generator(device=dev).manual_seed(3)
+    images = torch.rand((BATCH, 3, RES, RES), generator=gen,
+                        device=dev) * 2.0 - 1.0
+    tform = augment.sample_transform(gen, BATCH * n_aug, 1.0)
+    grid = augment.image_warp_grid(tform, RES, RES).reshape(
+        BATCH, n_aug, RES, RES, 2).contiguous()
+    grad_out = torch.randn((BATCH, n_aug, 3, RES, RES), generator=gen,
+                           device=dev)
+
+    out = warp.launch(images, grid)
+    dimages = warp.launch_grad(grad_out, grid, images.shape)
+    torch.cuda.synchronize()
+    leaf = images.clone().requires_grad_()
+    plain_out = warp.warp_plain(leaf, grid)
+    plain_dimages, = torch.autograd.grad(plain_out, leaf, grad_out,
+                                         retain_graph=True)
+    fwd_err = float((out - plain_out.detach()).abs().max())
+    bwd_err = float((dimages - plain_dimages).abs().max())
+    bwd_rel = rel_max(dimages, plain_dimages)
+    if fwd_err > WARP_ATOL or bwd_rel > WARP_GRAD_RTOL:
+        raise AssertionError(f'warp kernels disagree with their plain '
+                             f'version: forward {fwd_err}, backward '
+                             f'{bwd_rel} (relative to the largest)')
+
+    ms = time_cuda(lambda: warp.launch(images, grid), 20)
+    grad_ms = time_cuda(lambda: warp.launch_grad(grad_out, grid,
+                                                 images.shape), 20)
+    plain_ms = time_cuda(lambda: warp.warp_plain(images, grid), 10)
+    plain_grad_ms = time_cuda(lambda: torch.autograd.grad(
+        plain_out, leaf, grad_out, retain_graph=True), 10)
+
+    # Yardsticks only: F.grid_sample (zeros, align_corners=False) on the
+    # images repeated per crop, and its backward to the images.
+    rep = images.repeat_interleave(n_aug, dim=0).requires_grad_()
+    flat_grid = grid.reshape(BATCH * n_aug, RES, RES, 2)
+
+    def library():
+        return F.grid_sample(rep, flat_grid, mode='bilinear',
+                             padding_mode='zeros', align_corners=False)
+
+    library_ms = time_cuda(library, 20)
+    lib_out = library()
+    lib_cot = grad_out.reshape(BATCH * n_aug, 3, RES, RES)
+    library_grad_ms = time_cuda(lambda: torch.autograd.grad(
+        lib_out, rep, lib_cot, retain_graph=True), 20)
+
+    pixels = BATCH * n_aug * RES * RES
+    img_bytes = images.numel() * 4
+    crop_bytes = out.numel() * 4
+    grid_bytes = grid.numel() * 4
+    # Per crop pixel: the tap coordinates and weights (about 20), then 4
+    # multiply-adds per channel.
+    flops = pixels * (20 + 3 * 8)
+    fwd_b = bound(img_bytes + grid_bytes + crop_bytes, flops)
+    bwd_b = bound(crop_bytes + grid_bytes + img_bytes, flops)
+    emit('kernel', started, name='warp_forward', pixels=pixels,
+         max_abs_err=fwd_err, atol=WARP_ATOL, ms=ms, plain_ms=plain_ms,
+         library_ms=library_ms, **fwd_b)
+    emit('kernel', started, name='warp_backward', pixels=pixels,
+         max_abs_err=bwd_err, rel_err=bwd_rel, rtol=WARP_GRAD_RTOL,
+         ms=grad_ms, plain_ms=plain_grad_ms, library_ms=library_grad_ms,
+         **bwd_b)
+    return [row('warp_forward', WARP_SOURCE, WARP_TPU_KERNEL, fwd_err, ms,
+                plain_ms, library_ms, fwd_b),
+            row('warp_backward', WARP_SOURCE, WARP_TPU_KERNEL, bwd_err,
+                grad_ms, plain_grad_ms, library_grad_ms, bwd_b)]
+
+
+def counts() -> dict:
+    return {triplane_cuda.KERNEL: triplane_cuda.launches,
+            triplane_cuda.GRAD_KERNEL: triplane_cuda.grad_launches,
+            'warp_forward': warp.launches,
+            'warp_backward': warp.grad_launches}
+
+
+def reset_counts() -> None:
+    triplane_cuda.launches = triplane_cuda.grad_launches = 0
+    warp.launches = warp.grad_launches = 0
+
+
+def inversion_problem(gen: Generator):
+    """The target (rendered from a second latent and a known camera) and
+    the initial parameters (a third latent, the camera perturbed)."""
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(2)
+    gain = INV_CFG.lr_gain_z
+
+    def latent():
+        z = torch.from_numpy(rng.standard_normal(
+            (BATCH, GEN_KWARGS['latent_dim'])).astype(np.float32)).to(dev)
+        with torch.no_grad():
+            return gen.map(z) / gain
+
+    def tensor(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    quat = rng.standard_normal((BATCH, 4)) * 0.3 + [1.0, 0.0, 0.0, 0.0]
+    quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+    target_params = inv.InversionParams(
+        z=latent(), R=tensor(quat), s=tensor(np.ones(BATCH)),
+        t2=tensor(rng.uniform(-0.05, 0.05, (BATCH, 2))),
+        z0=tensor(np.full(BATCH, np.log(2.0))))
+    with torch.no_grad():
+        out, cam, _ = inv.render_from_params(gen, target_params, INV_CFG)
+    quat_init = quat + rng.standard_normal((BATCH, 4)) * 0.05
+    init = inv.InversionParams(
+        z=latent(), R=tensor(quat_init / np.linalg.norm(
+            quat_init, axis=-1, keepdims=True)),
+        s=target_params.s * 1.05, t2=target_params.t2 + 0.02,
+        z0=target_params.z0 + 0.1)
+    return out.rgb, out.mask, cam, init
+
+
+def inversion_stages(gen, lpips, init, target, tform, repeats: int = 3
+                     ) -> dict:
+    """Median ms of a step's stages, each between CUDA events: the render
+    forward, the loss forward (render, crops, LPIPS), the backward, and
+    Adam with the projection."""
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    params = init.copy(requires_grad=True)
+    optimizer = inv.make_optimizer(params, INV_CFG)
+    tensors = [t for _, t in params.named()]
+    times = {'render forward': [], 'loss forward': [], 'backward': [],
+             'adam + project': []}
+    for _ in range(repeats):
+        times['render forward'].append(timed(
+            lambda: inv.render_from_params(gen, params, INV_CFG))[1])
+        (loss, _), ms = timed(lambda: inv.inversion_loss(
+            gen, lpips, params, target, INV_CFG, tform=tform))
+        times['loss forward'].append(ms)
+        grads, ms = timed(lambda: torch.autograd.grad(loss, tensors))
+        times['backward'].append(ms)
+        for t, g in zip(tensors, grads):
+            t.grad = g
+        times['adam + project'].append(timed(
+            lambda: (optimizer.step(), inv.project(params)))[1])
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def inversion_phase(rows: dict):
+    started = time.perf_counter()
+    gen = Generator(dtype=torch.bfloat16, device='cuda', seed=0,
+                    **dict(GEN_KWARGS, scene_range=INV_CFG.scene_range))
+    gen.eval()
+    lpips = LPIPS(device='cuda').eval()
+    convert.load_lpips_state_dicts(lpips,
+                                   *convert.random_lpips_state_dicts(0))
+    target, target_mask, gt_cam, init = inversion_problem(gen)
+    dev = target.device
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    params, metrics = inv.run_inversion(
+        gen, lpips, init, target, INV_CFG, INV_STEPS,
+        generator=torch.Generator(device=dev).manual_seed(4),
+        gt_cam2world=gt_cam)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name, count in launches.items():
+        rows[name]['launches' if name != triplane_cuda.KERNEL else
+                   'inversion_launches'] = count
+        if count == 0:
+            raise AssertionError(f'kernel {name} was not launched by the '
+                                 f'inversion run')
+    metrics = {k: v.float().cpu().tolist() for k, v in metrics.items()}
+    for key in ('loss', 'grad_norm_z', 'grad_norm_R'):
+        if not all(np.isfinite(metrics[key])):
+            raise AssertionError(f'{key} not finite: {metrics[key]}')
+    for key in ('grad_norm_z', 'grad_norm_R'):
+        if not all(v > 0 for v in metrics[key]):
+            raise AssertionError(f'{key} has a zero: {metrics[key]}')
+    if not all(torch.isfinite(t).all() for _, t in params.named()):
+        raise AssertionError('the final parameters are not finite')
+
+    # ms per step: the step that run_inversion runs, one warm-up, then
+    # each step on the host clock between synchronisations.
+    step_params = init.copy(requires_grad=True)
+    optimizer = inv.make_optimizer(step_params, INV_CFG)
+    step = inv.make_inversion_step(gen, lpips, INV_CFG, gt_cam)
+    step_gen = torch.Generator(device=dev).manual_seed(5)
+    times = []
+    for _ in range(INV_STEPS + 1):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted(
-        (e for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA and
-         e.self_device_time_total > 0),
-        key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    emit('profile', started, stage_ms=stages, profiled_wall_ms=wall_ms,
-         device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
-         kernel_launches=sum(e.count for e in kernels),
-         top_kernels=[{'name': e.key[:100], 'count': e.count,
-                       'device_ms': e.self_device_time_total / 1e3}
-                      for e in kernels[:12]])
+        t0 = time.perf_counter()
+        step(step_params, optimizer, target, step_gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times[1:])
+
+    # The timed step (kernels) against the same step built on the plain
+    # sampler and warp, from the same parameters and crops: the loss and
+    # the gradients of z and R that the step hands to Adam.
+    tform = augment.sample_transform(
+        torch.Generator(device=dev).manual_seed(6),
+        BATCH * INV_CFG.num_augmentations, 1.0)
+    plain_step = inv.make_inversion_step(gen, lpips, INV_CFG, gt_cam,
+                                         sampler=triplane.plain_sampler,
+                                         warp=warp.warp_plain)
+
+    def loss_and_grads(step_fn):
+        p = init.copy(requires_grad=True)
+        m = step_fn(p, inv.make_optimizer(p, INV_CFG), target, tform=tform)
+        return float(m['loss']), p.z.grad, p.R.grad
+
+    k_loss, k_gz, k_gr = loss_and_grads(step)
+    p_loss, p_gz, p_gr = loss_and_grads(plain_step)
+    loss_err = abs(k_loss - p_loss) / abs(p_loss)
+    gz_err = float((k_gz - p_gz).norm() / p_gz.norm())
+    gr_err = float((k_gr - p_gr).norm() / p_gr.norm())
+    if (loss_err > STEP_LOSS_RTOL or gz_err > STEP_GRAD_RTOL or
+            gr_err > STEP_GRAD_RTOL):
+        raise AssertionError(f'step with the kernels differs from the plain '
+                             f'step: loss {loss_err}, grad z {gz_err}, '
+                             f'grad R {gr_err}')
+    stage_ms = inversion_stages(gen, lpips, init, target, tform)
+    emit('inversion', started, config=dataclasses.asdict(INV_CFG),
+         steps=INV_STEPS, run_s=run_s,
+         launches={k: v for k, v in launches.items()},
+         launches_per_step={k: v / INV_STEPS for k, v in launches.items()},
+         metrics=metrics, step_ms=step_ms, step_ms_all=times,
+         stage_ms=stage_ms, peak_gb=peak_gb,
+         target_mask_range=(float(target_mask.min()),
+                            float(target_mask.max())),
+         plain_check={'batch': BATCH, 'loss_kernels': k_loss,
+                      'loss_plain': p_loss, 'loss_rel_err': loss_err,
+                      'grad_z_rel_err': gz_err, 'grad_R_rel_err': gr_err,
+                      'loss_rtol': STEP_LOSS_RTOL,
+                      'grad_rtol': STEP_GRAD_RTOL})
+    return lambda: step(step_params, optimizer, target, step_gen)
 
 
 def main() -> None:
     started = time.perf_counter()
     device = device_phase()
     build_phase()
-    row = kernel_phase()
-    rows = {row['name']: row}
-    profile_phase(*slice_phase(rows))
+    rows = {}
+    for r in [kernel_phase(), triplane_grad_phase(), *warp_phase()]:
+        rows[r['name']] = r
+    render_args = slice_phase(rows)
+    inversion_step = inversion_phase(rows)
+    profile_phase(*render_args, inversion_step)
     emit('done', started)
     print(json.dumps({'kernels': list(rows.values())}), flush=True)
     print(json.dumps({'ok': True, 'device': device}), flush=True)

@@ -207,8 +207,10 @@ class Generator(nn.Module):
         Args:
           x_in: (B, ..., 3) world-space points, float32.
           requests: a subset of {'sigma', 'rgb'}.
-          sampler: the triplane sampler; the default takes the CUDA kernel
-            for CUDA tensors and the plain version for CPU tensors.
+          sampler: the triplane sampler; the default runs the CUDA
+            kernels (forward B1, backward B2) for CUDA tensors and their
+            plain versions for CPU tensors, differentiable to the planes
+            and the points either way.
 
         Returns values flattened over the non-batch dims: sigma (B, N),
         rgb (B, N, 3), and overflow_resid, a 0

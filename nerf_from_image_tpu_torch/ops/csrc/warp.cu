@@ -1,0 +1,158 @@
+// Bilinear image warp into affine crops for Hopper (sm_90a), forward and
+// backward to the image.
+//
+// Replaces TPU kernel B3: `grid_sample_zeros_windowed` in
+// nerf_from_image_tpu/ops/pallas/warp.py, which embeds the images in a
+// zero-margin plane set and reuses the windowed triplane kernels (B1 for
+// the forward, the planes-only B4 for the backward) because a TPU gathers
+// badly. Here the function gets kernels of its own: a bilinear sample with
+// zeros padding and align_corners=False (the semantics of
+// `core.augment._grid_sample_zeros`), computed in float32. The grid is
+// data (sampled transforms), so the backward goes to the image only.
+//
+// Layout. images (B, C, H, W) float32; grid (B, N, H', W', 2) float32 xy
+// in [-1, 1], N crops per image; out (B, N, C, H', W') float32. The
+// backward takes grad_out of the output's shape and adds into
+// dimages (B, C, H, W) float32, zeroed by the caller.
+//
+// Design. One thread per output pixel, looping over the channels: the
+// four tap offsets and weights are computed once per pixel, output rows
+// are coalesced, and the taps come from L2 (an image is 196 KB at
+// 3 x 128^2). The backward scatters with float32 atomicAdd, since crops
+// overlap in the image; the order of the adds, and so the last bits of
+// the sums, changes from run to run.
+//
+// Bound on this card. At the inversion's 8 images of 3 x 128^2 into 15
+// crops the forward reads 1.6 MB of images and 15.7 MB of grid and writes
+// 23.6 MB; the backward reads the 23.6 MB cotangent and the grid and
+// writes 1.6 MB: some 12 us each at 3.35 TB/s. A few operations per byte,
+// so both are bound by bytes, and at this size by launch latency.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+struct Taps {
+  int64_t offset[4];  // nw, ne, sw, se, as offsets in one (H, W) image
+  float weight[4];    // 0 for a tap outside the image
+};
+
+__device__ __forceinline__ Taps make_taps(float gx, float gy, int ih,
+                                          int iw) {
+  const float ix = ((gx + 1.0f) * iw - 1.0f) / 2.0f;
+  const float iy = ((gy + 1.0f) * ih - 1.0f) / 2.0f;
+  const float ix0 = floorf(ix);
+  const float iy0 = floorf(iy);
+  const float wx1 = ix - ix0, wx0 = ix0 + 1.0f - ix;
+  const float wy1 = iy - iy0, wy0 = iy0 + 1.0f - iy;
+  const int x0 = static_cast<int>(ix0), y0 = static_cast<int>(iy0);
+  const int xs[4] = {x0, x0 + 1, x0, x0 + 1};
+  const int ys[4] = {y0, y0, y0 + 1, y0 + 1};
+  const float ws[4] = {wx0 * wy0, wx1 * wy0, wx0 * wy1, wx1 * wy1};
+  Taps t;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const bool valid = xs[k] >= 0 && xs[k] <= iw - 1 && ys[k] >= 0 &&
+                       ys[k] <= ih - 1;
+    t.offset[k] = valid ? static_cast<int64_t>(ys[k]) * iw + xs[k] : 0;
+    t.weight[k] = valid ? ws[k] : 0.0f;
+  }
+  return t;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    warp_forward_kernel(const float* __restrict__ images,
+                        const float* __restrict__ grid,
+                        float* __restrict__ out, int64_t total, int crops,
+                        int channels, int ih, int iw, int64_t out_pixels) {
+  const int64_t pixel = static_cast<int64_t>(blockIdx.x) * kThreads +
+                        threadIdx.x;
+  if (pixel >= total) return;
+  const int64_t crop = pixel / out_pixels;  // b * N + n
+  const int64_t p = pixel - crop * out_pixels;
+  const int64_t image = crop / crops;
+  const Taps t = make_taps(__ldg(grid + 2 * pixel),
+                           __ldg(grid + 2 * pixel + 1), ih, iw);
+  const int64_t image_size = static_cast<int64_t>(ih) * iw;
+  const float* src = images + image * channels * image_size;
+  float* dst = out + crop * channels * out_pixels + p;
+  for (int c = 0; c < channels; ++c) {
+    const float* plane = src + c * image_size;
+    float v = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v += __ldg(plane + t.offset[k]) * t.weight[k];
+    dst[c * out_pixels] = v;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    warp_backward_kernel(const float* __restrict__ grad_out,
+                         const float* __restrict__ grid,
+                         float* __restrict__ dimages, int64_t total,
+                         int crops, int channels, int ih, int iw,
+                         int64_t out_pixels) {
+  const int64_t pixel = static_cast<int64_t>(blockIdx.x) * kThreads +
+                        threadIdx.x;
+  if (pixel >= total) return;
+  const int64_t crop = pixel / out_pixels;
+  const int64_t p = pixel - crop * out_pixels;
+  const int64_t image = crop / crops;
+  const Taps t = make_taps(__ldg(grid + 2 * pixel),
+                           __ldg(grid + 2 * pixel + 1), ih, iw);
+  const int64_t image_size = static_cast<int64_t>(ih) * iw;
+  float* dst = dimages + image * channels * image_size;
+  const float* src = grad_out + crop * channels * out_pixels + p;
+  for (int c = 0; c < channels; ++c) {
+    const float g = __ldg(src + c * out_pixels);
+    float* plane = dst + c * image_size;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (t.weight[k] != 0.0f) atomicAdd(plane + t.offset[k], t.weight[k] * g);
+    }
+  }
+}
+
+unsigned int blocks(int64_t total) {
+  return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes. Pointers are device pointers of
+// contiguous float32 tensors: images (B, C, H, W), grid (B, N, H', W', 2),
+// out (B, N, C, H', W'). Launch on `stream` and return the launch's
+// cudaError_t (0 on success); neither synchronises.
+extern "C" int warp_forward_f32(const void* images, const void* grid,
+                                void* out, int64_t batch, int crops,
+                                int channels, int ih, int iw, int oh, int ow,
+                                void* stream) {
+  const int64_t out_pixels = static_cast<int64_t>(oh) * ow;
+  const int64_t total = batch * crops * out_pixels;
+  if (total == 0) return 0;
+  warp_forward_kernel<<<blocks(total), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(images), static_cast<const float*>(grid),
+      static_cast<float*>(out), total, crops, channels, ih, iw, out_pixels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// grad_out (B, N, C, H', W'), grid (B, N, H', W', 2), dimages (B, C, H, W)
+// zeroed by the caller.
+extern "C" int warp_backward_f32(const void* grad_out, const void* grid,
+                                 void* dimages, int64_t batch, int crops,
+                                 int channels, int ih, int iw, int oh,
+                                 int ow, void* stream) {
+  const int64_t out_pixels = static_cast<int64_t>(oh) * ow;
+  const int64_t total = batch * crops * out_pixels;
+  if (total == 0) return 0;
+  warp_backward_kernel<<<blocks(total), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(grad_out), static_cast<const float*>(grid),
+      static_cast<float*>(dimages), total, crops, channels, ih, iw,
+      out_pixels);
+  return static_cast<int>(cudaGetLastError());
+}

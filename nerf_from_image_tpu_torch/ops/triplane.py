@@ -1,4 +1,5 @@
-"""Plain PyTorch triplane sampler (the function of TPU kernel B1).
+"""Plain PyTorch triplane sampler and its backward (the functions of TPU
+kernels B1 and B2).
 
 Counterpart of `nerf_from_image_tpu/ops/triplane.py`: for points at
 normalized [-1, 1] coordinates, the mean over the xy, xz and yz planes of
@@ -7,11 +8,14 @@ pair the first coordinate is the width (column) axis and the second the
 height (row) axis.
 
 The port keeps the planes channel-last, (B, 3, R, R, C), so that a 2x2 tap
-is four contiguous C-vectors. This module is the plain version of the CUDA
-kernel in `ops/csrc/triplane_sample.cu`: the CPU path of
-`ops.triplane_cuda.sample_triplane`, and what that kernel is held against
-on the card. It gathers texels with `index_select` and sums the 12 taps in
-float32.
+is four contiguous C-vectors. This module holds the plain versions of the CUDA
+kernels in `ops/csrc/triplane_sample.cu` (forward) and
+`ops/csrc/triplane_sample_grad.cu` (backward): the CPU path of
+`ops.triplane_cuda.sample_triplane`, and what those kernels are held
+against on the card. The forward gathers texels with `index_select` and
+sums the 12 taps in float32; the backward is written out explicitly
+(scatter with `index_add_`) rather than left to autograd, which would keep
+the (B, N, 12, C) float32 taps of a whole pass alive.
 """
 
 from __future__ import annotations
@@ -32,28 +36,48 @@ def planes_channel_last(planes: torch.Tensor) -> torch.Tensor:
     return planes.permute(0, 1, 3, 4, 2).contiguous()
 
 
-def _index_weights(gx: torch.Tensor, gy: torch.Tensor, r: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Coords -> (texel offsets (..., 4) of the 2x2 tap, weights (..., 4)).
+def _axis(g: torch.Tensor, r: int):
+    """Normalized coordinate -> (unclamped texel coordinate, lower and upper
+    texel index, fraction) along one axis of an (R, R) plane."""
+    raw = (g + 1.0) * 0.5 * (r - 1)
+    i = raw.clamp(0.0, r - 1.0)
+    i0 = torch.floor(i)
+    lo = i0.long().clamp(0, r - 1)
+    return raw, lo, (lo + 1).clamp_max(r - 1), i - i0
+
+
+def _clamp_slope(raw: torch.Tensor, r: int) -> torch.Tensor:
+    """d(clamped texel coordinate) / d(normalized coordinate).
+
+    (R - 1) / 2 inside the plane and 0 where the border clamp holds. At a
+    coordinate exactly on the border it is half that, the mean of the two
+    one-sided slopes, as JAX differentiates its clip.
+    """
+    inside = ((raw > 0) & (raw < r - 1)).float()
+    edge = ((raw == 0) | (raw == r - 1)).float()
+    return (inside + 0.5 * edge) * (0.5 * (r - 1))
+
+
+def _taps(x_axis, y_axis, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_axis` of both coordinates -> (texel offsets (..., 4) of the 2x2
+    tap, weights (..., 4)).
 
     Offsets count texels within one (R, R) plane; the taps are ordered
     (y0, x0), (y0, x1), (y1, x0), (y1, x1).
     """
-    ix = ((gx + 1.0) * 0.5 * (r - 1)).clamp(0.0, r - 1.0)
-    iy = ((gy + 1.0) * 0.5 * (r - 1)).clamp(0.0, r - 1.0)
-    x0 = torch.floor(ix)
-    y0 = torch.floor(iy)
-    fx = ix - x0
-    fy = iy - y0
-    xi = x0.long().clamp(0, r - 1)
-    yi = y0.long().clamp(0, r - 1)
-    x1 = (xi + 1).clamp_max(r - 1)
-    y1 = (yi + 1).clamp_max(r - 1)
+    _, xi, x1, fx = x_axis
+    _, yi, y1, fy = y_axis
     offsets = torch.stack((yi * r + xi, yi * r + x1, y1 * r + xi,
                            y1 * r + x1), dim=-1)
     weights = torch.stack(((1 - fx) * (1 - fy), fx * (1 - fy),
                            (1 - fx) * fy, fx * fy), dim=-1)
     return offsets, weights
+
+
+def _index_weights(gx: torch.Tensor, gy: torch.Tensor, r: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Coords -> (texel offsets (..., 4), weights (..., 4)); see `_taps`."""
+    return _taps(_axis(gx, r), _axis(gy, r), r)
 
 
 def tap_offsets(planes_cl: torch.Tensor, coords: torch.Tensor
@@ -98,3 +122,87 @@ def sample_triplane_plain(planes_cl: torch.Tensor,
         feats = (taps * weights[..., None]).sum(dim=(2, 3)) / 3.0
         out[:, start:start + CHUNK_POINTS] = feats.to(out.dtype)
     return out
+
+
+def sample_triplane_grad_plain(planes_cl: torch.Tensor, coords: torch.Tensor,
+                               grad_out: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of `sample_triplane_plain`, written out.
+
+    Args:
+      planes_cl: (B, 3, R, R, C) channel-last planes.
+      coords: (B, N, 3) float32 coordinates.
+      grad_out: (B, N, C) cotangent of the sampled features.
+
+    Returns:
+      dplanes: (B, 3, R, R, C) in the planes' dtype: each point's 12
+        bilinear-weighted cotangents (divided by 3), summed in float32.
+      dcoords: (B, N, 3) float32: per plane, the tap differences along
+        each axis times (R - 1) / 2 (zero where the border clamp holds),
+        summed onto that plane's two coordinates.
+    """
+    b, _, r, _, c = planes_cl.shape
+    n = coords.shape[1]
+    table = planes_cl.reshape(-1, c)
+    dtable = torch.zeros(table.shape, dtype=torch.float32,
+                         device=planes_cl.device)
+    dcoords = torch.empty((b, n, 3), dtype=torch.float32,
+                          device=coords.device)
+    for start in range(0, n, CHUNK_POINTS):
+        pts = coords[:, start:start + CHUNK_POINTS].float()
+        g = grad_out[:, start:start + CHUNK_POINTS].float() / 3.0
+        dc = torch.zeros_like(pts)
+        for p, (i, j) in enumerate(PLANE_AXES):
+            x_axis, y_axis = _axis(pts[..., i], r), _axis(pts[..., j], r)
+            raw_x, _, _, fx = x_axis
+            raw_y, _, _, fy = y_axis
+            rows, weights = _taps(x_axis, y_axis, r)
+            rows = rows + ((torch.arange(b, device=coords.device) * 3 + p) *
+                           r * r)[:, None, None]
+            dtable.index_add_(0, rows.reshape(-1),
+                              (weights[..., None] *
+                               g[:, :, None, :]).reshape(-1, c))
+            taps = table.index_select(0, rows.reshape(-1)).float()
+            tg = (taps.reshape(rows.shape + (c,)) *
+                  g[:, :, None, :]).sum(dim=-1)
+            t00, t01, t10, t11 = tg.unbind(dim=-1)
+            dc[..., i] += (((1 - fy) * (t01 - t00) + fy * (t11 - t10)) *
+                           _clamp_slope(raw_x, r))
+            dc[..., j] += (((1 - fx) * (t10 - t00) + fx * (t11 - t01)) *
+                           _clamp_slope(raw_y, r))
+        dcoords[:, start:start + CHUNK_POINTS] = dc
+    return dtable.reshape(planes_cl.shape).to(planes_cl.dtype), dcoords
+
+
+class TriplaneSample(torch.autograd.Function):
+    """Differentiable triplane sample around a forward and a backward
+    function with the signatures of `sample_triplane_plain` and
+    `sample_triplane_grad_plain` (the plain versions, or the wrappers of
+    the CUDA kernels). The backward returns None for an input that needs
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, planes_cl, coords, forward_fn, grad_fn):
+        ctx.save_for_backward(planes_cl, coords)
+        ctx.grad_fn = grad_fn
+        return forward_fn(planes_cl, coords)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        want_planes, want_coords = ctx.needs_input_grad[:2]
+        if not (want_planes or want_coords):
+            return None, None, None, None
+        planes_cl, coords = ctx.saved_tensors
+        dplanes, dcoords = ctx.grad_fn(planes_cl, coords,
+                                       grad_out.contiguous())
+        return (dplanes if want_planes else None,
+                dcoords if want_coords else None, None, None)
+
+
+def plain_sampler(planes_cl: torch.Tensor,
+                  coords: torch.Tensor) -> torch.Tensor:
+    """`sample_triplane_plain` with `sample_triplane_grad_plain` as its
+    backward, on any device: what the CUDA kernels are held against in a
+    differentiated render."""
+    return TriplaneSample.apply(planes_cl, coords, sample_triplane_plain,
+                                sample_triplane_grad_plain)

@@ -1,20 +1,23 @@
-"""Triplane sampler entry point: the CUDA kernel on the card, the plain
-version on the CPU.
+"""Triplane sampler entry point: the CUDA kernels on the card, the plain
+versions on the CPU.
 
-The kernel (`csrc/triplane_sample.cu`) replaces TPU kernel B1,
-`_resident_kernel` in `nerf_from_image_tpu/ops/pallas/triplane_window.py`.
-`sample_triplane` takes the plain version (`ops/triplane.py`) only for
-tensors that lie on the CPU; for CUDA tensors it launches the kernel or
-raises. The kernel is forward-only: its backward is TPU kernel B2
-(`_resident_grad_kernel`), which a later slice ports.
+The forward kernel (`csrc/triplane_sample.cu`) replaces TPU kernel B1,
+`_resident_kernel` in `nerf_from_image_tpu/ops/pallas/triplane_window.py`;
+the backward kernel (`csrc/triplane_sample_grad.cu`) replaces TPU kernel
+B2, `_resident_grad_kernel` in the same file, and gives the gradients of
+the planes and of the coordinates. `sample_triplane` runs both through one
+`autograd.Function` (`ops.triplane.TriplaneSample`): for tensors that lie
+on the CPU it takes the plain versions (`ops/triplane.py`); for CUDA
+tensors it launches the kernels or raises.
 
-`launches` counts kernel launches, so a run can show that its path went
-through the kernel.
+`launches` and `grad_launches` count kernel launches, so a run can show
+that its path went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -22,9 +25,11 @@ from nerf_from_image_tpu_torch.ops import cuda_build
 from nerf_from_image_tpu_torch.ops import triplane
 
 KERNEL = 'triplane_sample'
+GRAD_KERNEL = 'triplane_sample_grad'
 CHANNELS = 32
 
 launches = 0
+grad_launches = 0
 
 
 def _function():
@@ -32,6 +37,14 @@ def _function():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                    ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _grad_function():
+    fn = cuda_build.load_library(GRAD_KERNEL).triplane_sample_grad_bf16
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64,
+                                           ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -58,10 +71,8 @@ def _check(planes_cl: torch.Tensor, coords: torch.Tensor) -> None:
         raise ValueError('planes and coords must be contiguous')
 
 
-def launch(planes_cl: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Runs the CUDA kernel: (B, 3, R, R, 32) bf16, (B, N, 3) f32 ->
-    (B, N, 32) bf16."""
-    global launches
+def _check_kernel_inputs(planes_cl: torch.Tensor,
+                         coords: torch.Tensor) -> None:
     _check(planes_cl, coords)
     if planes_cl.device.type != 'cuda':
         raise ValueError(f'the CUDA kernel needs CUDA tensors, got '
@@ -69,6 +80,13 @@ def launch(planes_cl: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     if planes_cl.dtype != torch.bfloat16:
         raise TypeError(f'the CUDA kernel takes bfloat16 planes, got '
                         f'{planes_cl.dtype}')
+
+
+def launch(planes_cl: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Runs the forward kernel: (B, 3, R, R, 32) bf16, (B, N, 3) f32 ->
+    (B, N, 32) bf16."""
+    global launches
+    _check_kernel_inputs(planes_cl, coords)
     b, _, r, _, c = planes_cl.shape
     n = coords.shape[1]
     out = torch.empty((b, n, c), dtype=planes_cl.dtype,
@@ -86,29 +104,63 @@ def launch(planes_cl: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return out
 
 
-class _TriplaneSample(torch.autograd.Function):
+def launch_grad_raw(planes_cl: torch.Tensor, coords: torch.Tensor,
+                    grad_out: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Runs the backward kernel: planes (B, 3, R, R, 32) bf16, coords
+    (B, N, 3) f32, grad_out (B, N, 32) bf16 -> (dplanes (B, 3, R, R, 32)
+    f32, dcoords (B, N, 3) f32)."""
+    global grad_launches
+    _check(planes_cl, coords)
+    b, _, r, _, c = planes_cl.shape
+    n = coords.shape[1]
+    if (grad_out.shape != (b, n, c) or grad_out.dtype != torch.bfloat16 or
+            grad_out.device != planes_cl.device or
+            not grad_out.is_contiguous()):
+        raise ValueError(f'grad_out must be contiguous bfloat16 {(b, n, c)} '
+                         f'on {planes_cl.device}, got {grad_out.dtype} '
+                         f'{tuple(grad_out.shape)} on {grad_out.device}')
+    _check_kernel_inputs(planes_cl, coords)
+    dplanes = torch.zeros(planes_cl.shape, dtype=torch.float32,
+                          device=planes_cl.device)
+    dcoords = torch.empty((b, n, 3), dtype=torch.float32,
+                          device=coords.device)
+    if dcoords.numel() == 0:
+        dcoords.zero_()
+        return dplanes, dcoords
+    fn = _grad_function()
+    with torch.cuda.device(planes_cl.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(planes_cl.data_ptr(), coords.data_ptr(),
+                 grad_out.data_ptr(), dplanes.data_ptr(), dcoords.data_ptr(),
+                 b, n, r, stream)
+    if err != 0:
+        raise RuntimeError(f'{GRAD_KERNEL} launch failed: cudaError {err}')
+    grad_launches += 1
+    return dplanes, dcoords
 
-    @staticmethod
-    def forward(ctx, planes_cl, coords):
-        return launch(planes_cl, coords)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        raise NotImplementedError(
-            'the backward of the CUDA triplane sampler is TPU kernel B2 '
-            '(_resident_grad_kernel in nerf_from_image_tpu/ops/pallas/'
-            'triplane_window.py), not ported yet')
+def launch_grad(planes_cl: torch.Tensor, coords: torch.Tensor,
+                grad_out: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel with the plain backward's signature: dplanes
+    cast to the planes' dtype (bf16), as the JAX custom VJP casts its
+    float32 accumulators."""
+    dplanes, dcoords = launch_grad_raw(planes_cl, coords, grad_out)
+    return dplanes.to(planes_cl.dtype), dcoords
 
 
 def sample_triplane(planes_cl: torch.Tensor,
                     coords: torch.Tensor) -> torch.Tensor:
-    """Averaged triplane features at normalized coords.
+    """Averaged triplane features at normalized coords, differentiable to
+    the planes and the coords.
 
     planes_cl: (B, 3, R, R, 32) channel-last planes; coords: (B, N, 3)
     float32 in [-1, 1]. Returns (B, N, 32) in the planes' dtype. On the
-    CPU the planes may be float32 or bfloat16; the kernel takes bfloat16.
+    CPU the planes may be float32 or bfloat16; the kernels take bfloat16.
     """
+    _check(planes_cl, coords)
     if planes_cl.device.type == 'cpu':
-        _check(planes_cl, coords)
-        return triplane.sample_triplane_plain(planes_cl, coords)
-    return _TriplaneSample.apply(planes_cl, coords)
+        return triplane.plain_sampler(planes_cl, coords)
+    return triplane.TriplaneSample.apply(planes_cl, coords, launch,
+                                         launch_grad)

@@ -2,10 +2,12 @@
 composite (PyTorch port of `nerf_from_image_tpu/render/renderer.py`).
 
 The field is `sample_fn(points, requests) -> dict`, as in the JAX package.
-The slice ports the deterministic render (no jitter) of sigma and rgb with
-a perspective camera; normals, semantics, coordinates, bbox and principal-
-point crops wait for later slices. Run it under `torch.no_grad()`: the CUDA
-sampler has no backward yet.
+The port renders deterministically (no jitter) sigma and rgb with a
+perspective camera; normals, semantics, coordinates, bbox and principal-
+point crops wait for later slices. The render differentiates to the field
+and to the camera, as JAX's does: near/far, the coarse weights and the
+fine depths are detached, and the points of both passes carry the
+camera's gradient through the rays.
 """
 
 from __future__ import annotations

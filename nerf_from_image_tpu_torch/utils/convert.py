@@ -5,7 +5,11 @@ so a reference state dict loads with `load_reference_state_dict`.
 `from_jax_params` goes the other way from the JAX package's converter
 (`nerf_from_image_tpu/utils/torch_convert.py:convert_generator`): it turns
 a JAX `Generator`'s variables, as numpy arrays, into a reference-format
-state dict. This module holds numpy only and imports no JAX.
+state dict. The LPIPS leg builds reference-format LPIPS weights from a
+seed (`random_lpips_state_dicts`) and loads reference LPIPS weights into
+the port (`load_lpips_state_dicts`): the same two dicts that the JAX
+package's `convert_lpips` takes. This module holds numpy only and imports
+no JAX.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from nerf_from_image_tpu_torch.models import lpips
 
 # JAX tree paths whose reference names differ (prefix renames).
 _RENAMES = (
@@ -91,3 +97,51 @@ def load_reference_state_dict(model: nn.Module,
     if missing or unexpected:
         raise KeyError(f'state dict mismatch: missing {missing}, '
                        f'unexpected {unexpected}')
+
+
+# torchvision `vgg16().features` indices of the 13 convolutions.
+VGG_CONV_INDICES = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def random_lpips_state_dicts(seed: int
+                             ) -> Tuple[Dict[str, np.ndarray],
+                                        Dict[str, np.ndarray]]:
+    """Reference-format LPIPS weights drawn from `seed`.
+
+    Returns (vgg_sd, lin_sd): torchvision `features.<i>.{weight,bias}`
+    (He-normal kernels, small biases) and lpips `lin<i>.model.1.weight`
+    (non-negative, as lpips' are).
+    """
+    rng = np.random.default_rng(seed)
+    vgg_sd: Dict[str, np.ndarray] = {}
+    in_ch = 3
+    widths = [w for block in lpips.VGG_BLOCKS for w in block]
+    for idx, out_ch in zip(VGG_CONV_INDICES, widths):
+        fan_in = in_ch * 9
+        vgg_sd[f'features.{idx}.weight'] = (
+            rng.standard_normal((out_ch, in_ch, 3, 3)) *
+            np.sqrt(2.0 / fan_in)).astype(np.float32)
+        vgg_sd[f'features.{idx}.bias'] = (
+            rng.standard_normal(out_ch) * 0.01).astype(np.float32)
+        in_ch = out_ch
+    lin_sd = {f'lin{i}.model.1.weight':
+              (np.abs(rng.standard_normal((c, ))) * 0.1).astype(
+                  np.float32).reshape(1, c, 1, 1)
+              for i, c in enumerate(lpips.LIN_CHANNELS)}
+    return vgg_sd, lin_sd
+
+
+def load_lpips_state_dicts(model: nn.Module,
+                           vgg_sd: Mapping[str, Any],
+                           lin_sd: Mapping[str, Any]) -> None:
+    """Copies reference LPIPS weights into a port `LPIPS` in place.
+
+    Takes what `convert_lpips` takes: torchvision `features.*` and lpips
+    `lin<i>.model.1.weight`. Other VGG keys (the classifier) are ignored;
+    every key of the model must be present.
+    """
+    tensors = {}
+    for key, value in list(vgg_sd.items()) + list(lin_sd.items()):
+        if key.startswith(('features.', 'lin')):
+            tensors[key] = torch.tensor(np.asarray(value, np.float32))
+    model.load_state_dict(tensors, strict=True)

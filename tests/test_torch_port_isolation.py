@@ -17,6 +17,7 @@ import torch
 
 from nerf_from_image_tpu_torch import device as device_lib
 from nerf_from_image_tpu_torch.models.generator import Generator
+from nerf_from_image_tpu_torch.models.lpips import LPIPS
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / 'nerf_from_image_tpu_torch'
@@ -86,4 +87,6 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         Generator(latent_dim=8, scene_range=0.55, img_resolution=8,
                   channel_base=32, channel_max=8)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        LPIPS()
     assert device_lib.resolve_device('cpu') == torch.device('cpu')

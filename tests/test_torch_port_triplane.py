@@ -116,11 +116,13 @@ def test_wrapper_rejects_bad_inputs(case):
 
 
 def test_kernel_path_needs_cuda_tensors_and_has_no_backward():
-    """The kernel route never takes CPU tensors (no quiet fallback), and
-    its backward (TPU kernel B2) raises until it is ported."""
+    """The kernel routes never take CPU tensors (no quiet fallback): the
+    forward kernel (B1) and the backward kernel (B2, which the sampler's
+    backward now runs on the card) both raise for them."""
+    planes = torch.zeros(1, 3, 8, 8, 32, dtype=torch.bfloat16)
+    coords = torch.zeros(1, 4, 3)
     with pytest.raises(ValueError, match='CUDA'):
-        triplane_cuda.launch(torch.zeros(1, 3, 8, 8, 32,
-                                         dtype=torch.bfloat16),
-                             torch.zeros(1, 4, 3))
-    with pytest.raises(NotImplementedError, match='B2'):
-        triplane_cuda._TriplaneSample.backward(None, torch.zeros(1))
+        triplane_cuda.launch(planes, coords)
+    with pytest.raises(ValueError, match='CUDA'):
+        triplane_cuda.launch_grad(planes, coords,
+                                  torch.zeros(1, 4, 32, dtype=torch.bfloat16))
