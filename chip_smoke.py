@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`nerf_from_image_tpu_torch`) on one card.
 
-Drives the port's two paths at full width with random weights from a
+Drives the port's three paths at full width with random weights from a
 seed (latent 512, 256^2 triplanes of 32 channels, 10 attention values,
 bfloat16 activations, batch 8, 128x128 rays, 64 coarse + 64 fine
 samples):
@@ -13,14 +13,19 @@ samples):
   the pose optimized): render -> VGG LPIPS on the image and 15 random
   affine crops -> backward to the latent and the camera -> Adam ->
   projection, against a target rendered from a second latent and a known
-  camera.
+  camera;
+- GAN training in p3d_car's configuration: a generator step (render with
+  jittered depths from ADA-augmented poses, 4-channel discriminator,
+  eikonal/tv/entropy, Adam, EMA) and a discriminator step (ADA on the 2x
+  real images, R1, fakes rendered without a graph), against a real batch
+  rendered once from a second latent at 256^2.
 
 Phases, each printed as one JSON line:
 
   device     the card, its power limit, the precision settings
   build      nvcc builds every kernel source, all at once
-  kernel     each kernel (B1, B2, B3 forward, B3 backward) against its
-             plain PyTorch version at the shapes its path gives it; its
+  kernel     each kernel (B1, B2, B4, B3 forward, B3 backward) against
+             its plain PyTorch version at the shapes its path gives it; its
              time, bound and library yardstick
   model      the full-width generator is built
   slice      map -> synthesize -> render through the kernels (launch counts
@@ -29,10 +34,15 @@ Phases, each printed as one JSON line:
   inversion  run_inversion through the kernels (counts reset just before
              and read just after), ms per step, the per-step metrics, and
              one step against the same step on the plain sampler and warp
-  profile    the render's stages timed with CUDA events; one render and
-             one inversion step traced with torch.profiler: device busy
-             time, its idle share of the traced wall time, costliest
-             kernels
+  train      G + D step pairs through the kernels (counts reset just before
+             and read just after each step), ms per step and per pair,
+             images/s, peak memory, the losses; one G step against the same
+             step on the plain sampler; one D step at iteration 1
+  profile    the render's stages timed with CUDA events; one render, one
+             inversion step, one G step and one D step traced with
+             torch.profiler: device busy time, its idle share of the traced
+             wall time, costliest kernels and costliest operators with
+             their input shapes
 
 Then a line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Any failure raises and the script exits non-zero; without CUDA it exits
@@ -54,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from nerf_from_image_tpu_torch.core import augment
+from nerf_from_image_tpu_torch.core import pose as pose_lib
 from nerf_from_image_tpu_torch.core import rays as rays_lib
 from nerf_from_image_tpu_torch.invert import optimizer as inv
 from nerf_from_image_tpu_torch.models.generator import Generator
@@ -63,6 +74,7 @@ from nerf_from_image_tpu_torch.ops import triplane
 from nerf_from_image_tpu_torch.ops import triplane_cuda
 from nerf_from_image_tpu_torch.ops import warp
 from nerf_from_image_tpu_torch.render.renderer import normalize, render
+from nerf_from_image_tpu_torch.train import gan
 from nerf_from_image_tpu_torch.utils import convert
 
 # bench.py's operating point.
@@ -120,10 +132,34 @@ INV_STEPS = 5  # steps of the driven run, and timed steps after a warm-up
 STEP_LOSS_RTOL = 1e-2  # |loss_k - loss_p| / |loss_p|
 STEP_GRAD_RTOL = 5e-2  # ||g_k - g_p|| / ||g_p||, for z and R
 
+# GAN training: p3d_car as the JAX CLI builds it
+# (nerf_from_image_tpu/config.py:181-186, 224-228), one card's batch of 8.
+TRAIN_CFG = gan.GANConfig(
+    resolution=RES, latent_dim=512, depth_samples_per_ray=SAMPLES,
+    scene_range=1.4, white_background=False, camera_flipped=True,
+    supervise_alpha=True, is_highres=True, augment_ada=True,
+    augment_p_max=0.8, batch_size=BATCH, attention_values=10,
+    plane_resolution=256, channel_base=32768, channel_max=512)
+TRAIN_ITERATION = 12500  # past the blur warmup, as all but a run's start
+TRAIN_AUGMENT_P = 0.4  # ADA acts on poses and real images
+TRAIN_PAIRS = 5  # timed G + D pairs, after one warm-up pair
+# Launches per step of each kernel: the G step renders (B1, coarse and
+# fine) and backpropagates to the planes only (B4); the D step renders its
+# fakes without a graph (B1). No coordinate carries a gradient (no B2), and
+# the ADA warp is plain PyTorch (no B3).
+G_STEP_LAUNCHES = {'triplane_sample': 2, 'triplane_sample_grad': 0,
+                   'triplane_sample_grad_planes': 2, 'warp_forward': 0,
+                   'warp_backward': 0}
+D_STEP_LAUNCHES = dict(G_STEP_LAUNCHES, triplane_sample_grad_planes=0)
+
 TRIPLANE_TPU_KERNEL = 'nerf_from_image_tpu/ops/pallas/triplane_window.py:282'
 TRIPLANE_SOURCE = 'nerf_from_image_tpu_torch/ops/csrc/triplane_sample.cu'
 GRAD_TPU_KERNEL = 'nerf_from_image_tpu/ops/pallas/triplane_window.py:305'
 GRAD_SOURCE = 'nerf_from_image_tpu_torch/ops/csrc/triplane_sample_grad.cu'
+GRAD_PLANES_TPU_KERNEL = (
+    'nerf_from_image_tpu/ops/pallas/triplane_window.py:476')
+GRAD_PLANES_SOURCE = (
+    'nerf_from_image_tpu_torch/ops/csrc/triplane_sample_grad_planes.cu')
 WARP_TPU_KERNEL = 'nerf_from_image_tpu/ops/pallas/warp.py:73'
 WARP_SOURCE = 'nerf_from_image_tpu_torch/ops/csrc/warp.cu'
 
@@ -203,7 +239,8 @@ def device_phase() -> dict:
 
 def build_phase() -> None:
     started = time.perf_counter()
-    sources = [triplane_cuda.KERNEL, triplane_cuda.GRAD_KERNEL, warp.KERNEL]
+    sources = [triplane_cuda.KERNEL, triplane_cuda.GRAD_KERNEL,
+               triplane_cuda.GRAD_PLANES_KERNEL, warp.KERNEL]
     cuda_build.build(sources)
     ptxas = {name: [line.strip() for line in
                     cuda_build.build_log.get(name, '').splitlines()
@@ -363,10 +400,11 @@ def slice_phase(rows: dict):
 
 def trace(fn) -> dict:
     """One call of `fn` under torch.profiler: wall time, device busy time,
-    its idle share and the costliest kernels."""
+    its idle share, the costliest kernels, and the operators whose own
+    launches cost the most device time, with their input shapes."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -377,17 +415,26 @@ def trace(fn) -> dict:
          e.self_device_time_total > 0),
         key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ops = sorted(
+        (e for e in prof.key_averages(group_by_input_shape=True)
+         if e.device_type == torch.autograd.DeviceType.CPU and
+         e.self_device_time_total > 0),
+        key=lambda e: e.self_device_time_total, reverse=True)
     return {'profiled_wall_ms': wall_ms, 'device_busy_ms': busy_ms,
             'idle_share': 1.0 - busy_ms / wall_ms,
             'kernel_launches': sum(e.count for e in kernels),
             'top_kernels': [{'name': e.key[:100], 'count': e.count,
                              'device_ms': e.self_device_time_total / 1e3}
-                            for e in kernels[:12]]}
+                            for e in kernels[:12]],
+            'top_ops': [{'name': e.key, 'shapes': str(e.input_shapes)[:160],
+                         'count': e.count,
+                         'device_ms': e.self_device_time_total / 1e3}
+                        for e in ops[:10]]}
 
 
-def profile_phase(gen, z, cam, focal, inversion_step) -> None:
-    """Device time of one render, by stage and by kernel, and of one
-    inversion step."""
+def profile_phase(gen, z, cam, focal, inversion_step, train_steps) -> None:
+    """Device time of one render, by stage and by kernel, of one inversion
+    step, and of one G step and one D step."""
     started = time.perf_counter()
 
     @torch.no_grad()
@@ -403,8 +450,10 @@ def profile_phase(gen, z, cam, focal, inversion_step) -> None:
     stages = {'map + synthesize': time_cuda(synthesize, 5, 1),
               'render': time_cuda(lambda: render_state(state), 5, 1)}
     render_trace = trace(lambda: render_state(synthesize()))
+    g_step, d_step = train_steps
     emit('profile', started, stage_ms=stages, **render_trace,
-         inversion_step=trace(inversion_step))
+         inversion_step=trace(inversion_step), g_step=trace(g_step),
+         d_step=trace(d_step))
 
 
 def triplane_grad_phase() -> dict:
@@ -477,6 +526,77 @@ def triplane_grad_phase() -> dict:
          library_ms=library_ms, touched_texels=texels, **b)
     return row(triplane_cuda.GRAD_KERNEL, GRAD_SOURCE, GRAD_TPU_KERNEL,
                max_err, ms, plain_ms, library_ms, b)
+
+
+def triplane_grad_planes_phase() -> dict:
+    """B4 against its plain version and against B2's dplanes, on the points
+    and cotangent of the B2 phase; returns its row."""
+    started = time.perf_counter()
+    dev = torch.device('cuda')
+    coords = coarse_coords(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    r = GEN_KWARGS['img_resolution']
+    c = triplane_cuda.CHANNELS
+    # The B2 phase's draws: the planes (B4 never reads them; B2 does), then
+    # the cotangent.
+    planes_cl = torch.randn((BATCH, 3, r, r, c), generator=gen,
+                            device=dev).to(torch.bfloat16)
+    grad_out = torch.randn((BATCH, coords.shape[1], c), generator=gen,
+                           device=dev).to(torch.bfloat16)
+    shape = tuple(planes_cl.shape)
+
+    dplanes = triplane_cuda.launch_grad_planes(shape, coords, grad_out)
+    torch.cuda.synchronize()
+    ref = triplane.sample_triplane_grad_planes_plain(shape, coords, grad_out)
+    err_plain = rel_max(dplanes, ref)
+    max_err = float((dplanes - ref).abs().max())
+    del ref
+    b2_planes, _ = triplane_cuda.launch_grad_raw(planes_cl, coords, grad_out)
+    err_b2 = rel_max(dplanes, b2_planes)
+    del b2_planes
+    if (err_plain > GRAD_RTOL or err_b2 > GRAD_RTOL or
+            not torch.isfinite(dplanes).all()):
+        raise AssertionError(f'planes-only grad kernel disagrees: with its '
+                             f'plain version {err_plain}, with B2 {err_b2} '
+                             f'(relative to the largest)')
+
+    ms = time_cuda(lambda: triplane_cuda.launch_grad_planes(shape, coords,
+                                                            grad_out), 10)
+    plain_ms = time_cuda(lambda: triplane.sample_triplane_grad_planes_plain(
+        shape, coords, grad_out), 3, 1)
+
+    # Yardstick only: the backward of F.grid_sample (border,
+    # align_corners=True) to the float32 planes alone, with the mean over
+    # the three planes.
+    n = coords.shape[1]
+    planes_cf = planes_cl.permute(0, 1, 4, 2, 3).reshape(
+        BATCH * 3, c, r, r).float().contiguous().requires_grad_()
+    grid = torch.stack([coords[..., list(axes)]
+                        for axes in triplane.PLANE_AXES], dim=1)
+    grid = grid.reshape(BATCH * 3, 1, n, 2)
+    feats = F.grid_sample(planes_cf, grid, mode='bilinear',
+                          padding_mode='border', align_corners=True)
+    feats = feats.reshape(BATCH, 3, c, n).mean(dim=1)
+    cotangent = grad_out.float().transpose(1, 2)
+    library_ms = time_cuda(lambda: torch.autograd.grad(
+        feats, planes_cf, cotangent, retain_graph=True), 5)
+    del feats, planes_cf, grid, cotangent
+
+    points = BATCH * n
+    # Each input read once (coordinates, cotangent), the float32 dplanes
+    # written once; the caller's zero fill is not counted.
+    bytes_moved = (coords.numel() * 4 + grad_out.numel() * 2 +
+                   dplanes.numel() * 4)
+    # Per point, plane and channel: 4 weights times g, 4 adds (16); the
+    # weights themselves are per point and plane.
+    flops = points * 3 * c * 16
+    b = bound(bytes_moved, flops)
+    emit('kernel', started, name=triplane_cuda.GRAD_PLANES_KERNEL,
+         points=points, plain_rel_err=err_plain, b2_rel_err=err_b2,
+         max_abs_err=max_err, rtol=GRAD_RTOL, ms=ms, plain_ms=plain_ms,
+         library_ms=library_ms, **b)
+    return row(triplane_cuda.GRAD_PLANES_KERNEL, GRAD_PLANES_SOURCE,
+               GRAD_PLANES_TPU_KERNEL, max_err, ms, plain_ms, library_ms, b)
 
 
 def warp_phase() -> list:
@@ -557,12 +677,15 @@ def warp_phase() -> list:
 def counts() -> dict:
     return {triplane_cuda.KERNEL: triplane_cuda.launches,
             triplane_cuda.GRAD_KERNEL: triplane_cuda.grad_launches,
+            triplane_cuda.GRAD_PLANES_KERNEL:
+                triplane_cuda.grad_planes_launches,
             'warp_forward': warp.launches,
             'warp_backward': warp.grad_launches}
 
 
 def reset_counts() -> None:
     triplane_cuda.launches = triplane_cuda.grad_launches = 0
+    triplane_cuda.grad_planes_launches = 0
     warp.launches = warp.grad_launches = 0
 
 
@@ -656,6 +779,11 @@ def inversion_phase(rows: dict):
     run_s = time.perf_counter() - t0
     launches = counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # The camera carries a gradient, so the render's backward is B2 and
+    # never the planes-only B4.
+    if launches.pop(triplane_cuda.GRAD_PLANES_KERNEL) != 0:
+        raise AssertionError('the inversion run launched the planes-only '
+                             'backward B4')
     for name, count in launches.items():
         rows[name]['launches' if name != triplane_cuda.KERNEL else
                    'inversion_launches'] = count
@@ -729,16 +857,190 @@ def inversion_phase(rows: dict):
     return lambda: step(step_params, optimizer, target, step_gen)
 
 
+def p3d_cameras(rng: np.random.Generator, b: int, dev: torch.device):
+    """Cameras of the inversion phase's form (flipped, focal 1.5, s = 1, a
+    small t2) at random azimuths about the vertical axis, slightly tilted.
+    Returns (cam2world (B, 4, 4), focal (B,))."""
+    theta = rng.uniform(-np.pi, np.pi, b)
+    quat = np.stack((np.cos(theta / 2), np.zeros(b), np.sin(theta / 2),
+                     np.zeros(b)), axis=-1)
+    quat = quat + rng.standard_normal((b, 4)) * 0.05
+    quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+
+    def tensor(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    return pose_lib.pose_to_matrix(
+        tensor(np.full(b, np.log(2.0))), tensor(rng.uniform(-0.05, 0.05,
+                                                            (b, 2))),
+        tensor(np.ones(b)), tensor(quat), True)
+
+
+def train_phase(rows: dict):
+    """G + D pairs at full width in p3d_car's configuration; returns a G
+    step and a D step to trace."""
+    started = time.perf_counter()
+    dev = torch.device('cuda')
+    cfg = TRAIN_CFG
+    state = gan.init_train_state(cfg, dtype=torch.bfloat16, device=dev,
+                                 seed=0)
+    state.iteration = TRAIN_ITERATION
+    state.augment_p = TRAIN_AUGMENT_P
+    for opt in (state.opt_g, state.opt_d):  # past the lr warmup
+        opt.param_groups[0]['count'] = TRAIN_ITERATION // 2
+    rng = np.random.default_rng(7)
+
+    def batch():
+        cam, focal = p3d_cameras(rng, BATCH, dev)
+        z = torch.from_numpy(rng.standard_normal(
+            (BATCH, cfg.latent_dim)).astype(np.float32)).to(dev)
+        return {'z': z, 'pose': cam, 'focal': focal}
+
+    # The real batch: a second latent rendered once at 256^2 without a
+    # graph (image_highres, the mask as its alpha), and its 2x2 mean.
+    with torch.no_grad():
+        source = batch()
+        st = state.gen.synthesize(state.gen.map(source['z']))
+        out = render(lambda pts, req: state.gen.sample(st, pts, req),
+                     2 * RES, 2 * RES, source['pose'], source['focal'],
+                     cfg.scene_range, cfg.white_background, SAMPLES)
+        hi = torch.cat((out.rgb, out.mask[..., None]), dim=-1)
+        real = {'image_highres': hi,
+                'image': hi.reshape(BATCH, RES, 2, RES, 2, 4).mean((2, 4)),
+                'pose': source['pose'], 'focal': source['focal']}
+        real_mask = (float(out.mask.min()), float(out.mask.max()))
+        del st, out, hi
+    torch.cuda.empty_cache()
+
+    def timed(fn, want: dict, what: str):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = counts()
+        if launched != want:
+            raise AssertionError(f'{what}: launches {launched}, expected '
+                                 f'{want}')
+        return {k: float(v) for k, v in metrics.items()}, ms, launched
+
+    torch.cuda.reset_peak_memory_stats()
+    g_ms, d_ms, steps = [], [], []
+    for k in range(TRAIN_PAIRS + 1):
+        g_batch, fake = batch(), batch()
+        g_metrics, gt, g_launched = timed(
+            lambda: gan.g_step(state, g_batch, cfg), G_STEP_LAUNCHES,
+            'G step')
+        d_metrics, dt, d_launched = timed(
+            lambda: gan.d_step(state, real, fake, cfg), D_STEP_LAUNCHES,
+            'D step')
+        steps.append({**g_metrics, **d_metrics})
+        if k > 0:  # the first pair is the warm-up
+            g_ms.append(gt)
+            d_ms.append(dt)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for m in steps:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f'a step metric is not finite: {m}')
+        if m['grad_norm_g'] <= 0 or m['grad_norm_d'] <= 0:
+            raise AssertionError(f'a gradient norm is zero: {m}')
+    # The launches read in the last timed pair.
+    rows[triplane_cuda.GRAD_PLANES_KERNEL]['launches'] = g_launched[
+        triplane_cuda.GRAD_PLANES_KERNEL]
+    rows[triplane_cuda.KERNEL]['train_launches'] = {
+        'g_step': g_launched[triplane_cuda.KERNEL],
+        'd_step': d_launched[triplane_cuda.KERNEL]}
+
+    # One G step's loss and gradients through the kernels against the same
+    # step on the plain sampler, from the same state and batch with
+    # injected draws.
+    gen_t = torch.Generator(device=dev).manual_seed(8)
+    n = 31  # the regularizers' strata per axis
+    fixed = dict(batch(), aug_tform=augment.sample_transform(
+        gen_t, BATCH, TRAIN_AUGMENT_P), noise={
+            'depth': torch.rand((BATCH, RES, RES, SAMPLES), generator=gen_t,
+                                device=dev),
+            'pdf_u': torch.rand((BATCH * RES * RES, SAMPLES),
+                                generator=gen_t, device=dev),
+            'strata': torch.rand((BATCH, n, n, n, 3), generator=gen_t,
+                                 device=dev),
+            'perturb': torch.randn((BATCH, n ** 3, 3), generator=gen_t,
+                                   device=dev)})
+    params = list(state.gen.parameters())
+    last_layer = getattr(state.gen.synthesis_network,
+                         f'b{cfg.plane_resolution}').torgb.weight
+    last = [p is last_layer for p in params].index(True)
+
+    def loss_and_grads(sampler):
+        loss, _ = gan.generator_loss(state, fixed, cfg, sampler)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads if g is not None]))
+        return float(loss.detach()), float(norm), grads[last]
+
+    k_loss, k_norm, k_last = loss_and_grads(triplane_cuda.sample_triplane)
+    p_loss, p_norm, p_last = loss_and_grads(triplane.plain_sampler)
+    loss_err = abs(k_loss - p_loss) / abs(p_loss)
+    norm_err = abs(k_norm - p_norm) / p_norm
+    last_err = float((k_last - p_last).norm() / p_last.norm())
+    if (loss_err > STEP_LOSS_RTOL or norm_err > STEP_GRAD_RTOL or
+            last_err > STEP_GRAD_RTOL):
+        raise AssertionError(f'G step with the kernels differs from the '
+                             f'plain step: loss {loss_err}, grad norm '
+                             f'{norm_err}, last layer {last_err}')
+
+    # One D step at iteration 1: the warmup blur and R1.
+    state.iteration = 1
+    early = {k: float(v) for k, v in
+             gan.d_step(state, real, batch(), cfg).items()}
+    if not all(np.isfinite(v) for v in early.values()):
+        raise AssertionError(f'D step at iteration 1 not finite: {early}')
+
+    pair_ms = [g + d for g, d in zip(g_ms, d_ms)]
+    emit('train', started, config=dataclasses.asdict(cfg),
+         iteration=TRAIN_ITERATION, augment_p_start=TRAIN_AUGMENT_P,
+         augment_p_end=state.augment_p, pairs=TRAIN_PAIRS,
+         g_step_ms=statistics.median(g_ms), d_step_ms=statistics.median(d_ms),
+         pair_ms=statistics.median(pair_ms), g_step_ms_all=g_ms,
+         d_step_ms_all=d_ms,
+         images_per_s=BATCH / (statistics.median(pair_ms) / 1e3),
+         peak_gb=peak_gb, g_step_launches=g_launched,
+         d_step_launches=d_launched, step_metrics=steps,
+         real_mask_range=real_mask,
+         plain_check={'loss_kernels': k_loss, 'loss_plain': p_loss,
+                      'loss_rel_err': loss_err, 'grad_norm_kernels': k_norm,
+                      'grad_norm_plain': p_norm, 'grad_norm_rel_err': norm_err,
+                      'last_layer_grad_rel_err': last_err,
+                      'loss_rtol': STEP_LOSS_RTOL,
+                      'grad_rtol': STEP_GRAD_RTOL},
+         d_step_iteration_1=early)
+
+    g_batch, fake = batch(), batch()
+
+    def traced_g():
+        state.iteration = TRAIN_ITERATION
+        gan.g_step(state, g_batch, cfg)
+
+    def traced_d():
+        state.iteration = TRAIN_ITERATION + 1
+        gan.d_step(state, real, fake, cfg)
+
+    return traced_g, traced_d
+
+
 def main() -> None:
     started = time.perf_counter()
     device = device_phase()
     build_phase()
     rows = {}
-    for r in [kernel_phase(), triplane_grad_phase(), *warp_phase()]:
+    for r in [kernel_phase(), triplane_grad_phase(),
+              triplane_grad_planes_phase(), *warp_phase()]:
         rows[r['name']] = r
     render_args = slice_phase(rows)
     inversion_step = inversion_phase(rows)
-    profile_phase(*render_args, inversion_step)
+    train_steps = train_phase(rows)
+    profile_phase(*render_args, inversion_step, train_steps)
     emit('done', started)
     print(json.dumps({'kernels': list(rows.values())}), flush=True)
     print(json.dumps({'ok': True, 'device': device}), flush=True)

@@ -1,10 +1,13 @@
-"""Random affine crops of images (PyTorch port of the image path of
+"""ADA-style augmentation: random affine transforms of images and the
+matching camera poses (PyTorch port of
 `nerf_from_image_tpu/core/augment.py`).
 
 Rotation, scale and translation drawn per sample and gated by a
 probability `p`; the image is resampled with a bilinear warp, zeros
-padding and align_corners=False (with the white-background -1 shift).
-The inversion loss uses it for its 15 crops per image. Transforms are
+padding and align_corners=False (with the white-background -1 shift), and
+the pose and focal are compensated so that a render from them shows the
+warped image. The inversion loss uses the image path for its 15 crops per
+image; GAN training augments real images and all poses. Transforms are
 drawn from an explicit `torch.Generator`; the JAX package draws other
 numbers from its keys, so tests hand both the same transform.
 
@@ -20,6 +23,8 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+
+from nerf_from_image_tpu_torch.core import pose as pose_lib
 
 
 @dataclass
@@ -127,12 +132,58 @@ def augment_impl(img: torch.Tensor, tform: AffineTransform,
     return out
 
 
-def augment(generator: Optional[torch.Generator], img: torch.Tensor,
-            p: float, white_background: bool, disable_scale: bool = False,
+def augment_pose(pose: torch.Tensor, focal: Optional[torch.Tensor],
+                 tform: AffineTransform
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The pose and focal that see the transformed image: the camera
+    rolled by the rotation, the focal divided by the scale (an
+    orthographic camera scales the matrix instead), and the camera shifted
+    in its image plane by the translation."""
+    mat = _affine_mat(tform)
+    b = pose.shape[0]
+    roll = torch.eye(4, dtype=pose.dtype, device=pose.device).repeat(b, 1, 1)
+    roll[:, :2, :2] = mat[:, :2, :2]
+    pose_new = pose @ roll.transpose(-2, -1)
+    focal_out = None
+    if focal is not None:
+        focal_out = focal / tform.scale
+    else:
+        scale = torch.ones_like(pose_new)
+        scale[:, :3, :3] = tform.scale[:, None, None]
+        scale[:, 3, 3] = tform.scale
+        pose_new = pose_new * scale
+    cam_inv = pose_lib.invert_space(pose_new)
+    if focal is not None:
+        shift = tform.translation * (-cam_inv[:, 2:3, 3] /
+                                     (2.0 * focal_out[:, None]))
+    else:
+        shift = tform.translation * pose_new[:, 3:4, 3]
+    offset = torch.zeros_like(cam_inv)
+    offset[:, :2, 3] = shift
+    pose_out = pose_lib.invert_space(cam_inv - offset)
+    if focal is None:
+        scale = torch.ones_like(pose_out)
+        scale[:, :3, :3] = pose_new[:, 3:4, 3:4]
+        scale[:, 3, 3] = pose_new[:, 3, 3]
+        pose_out = pose_out * scale
+    return pose_out, focal_out
+
+
+def augment(generator: Optional[torch.Generator],
+            img: Optional[torch.Tensor], pose: Optional[torch.Tensor],
+            focal: Optional[torch.Tensor], p: float, white_background: bool,
+            disable_scale: bool = False,
             cached_tform: Optional[AffineTransform] = None
-            ) -> Tuple[torch.Tensor, AffineTransform]:
-    """Draws (or reuses) a transform and applies it to the images.
-    Returns (images, transform)."""
+            ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
+                       Optional[torch.Tensor], AffineTransform]:
+    """Draws (or reuses) a transform and applies it to the images
+    (B, C, H, W) and/or the poses (B, 4, 4) and focals (B,), any of which
+    may be None. Returns (images, poses, focals, transform)."""
+    bs = img.shape[0] if img is not None else pose.shape[0]
     tform = (cached_tform if cached_tform is not None else
-             sample_transform(generator, img.shape[0], p, disable_scale))
-    return augment_impl(img, tform, white_background), tform
+             sample_transform(generator, bs, p, disable_scale))
+    if img is not None:
+        img = augment_impl(img, tform, white_background)
+    if pose is not None:
+        pose, focal = augment_pose(pose, focal, tform)
+    return img, pose, focal, tform

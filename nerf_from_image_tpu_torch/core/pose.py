@@ -1,10 +1,10 @@
 """Camera pose math (PyTorch port of the parts of
-`nerf_from_image_tpu/core/pose.py` that inversion uses).
+`nerf_from_image_tpu/core/pose.py` that inversion and GAN training use).
 
 cam2world <-> world2cam inversion with a scale carried in entry [3, 3],
 quaternion -> rotation matrix, the (z0, t2, s, q) pose parameterization of
-the inversion optimizer and its inverse, and the geodesic rotation
-distance. Differentiable where the reference is; `matrix_to_quaternion`
+the inversion optimizer and its inverse, the discriminator's 13-D pose
+conditioning, and the geodesic rotation distance. Differentiable where the reference is; `matrix_to_quaternion`
 is host-side numpy.
 """
 
@@ -133,6 +133,26 @@ def matrix_to_pose(cam2world: torch.Tensor,
                       for m in m_inv.detach().cpu().double().numpy()])
     return z0, t2, s, torch.as_tensor(quats, dtype=mat.dtype,
                                       device=mat.device)
+
+
+def matrix_to_conditioning_vector(cam2world: torch.Tensor,
+                                  focal_length: Optional[torch.Tensor],
+                                  camera_flipped: bool) -> torch.Tensor:
+    """The discriminator's 13-D pose conditioning (B, 13): log f (unshifted,
+    the reference's convention; 0 without a focal), t2, s and the
+    flattened world2cam rotation."""
+    mat = _flip(cam2world) if camera_flipped else cam2world
+    m_inv = invert_space(mat)
+    rot = m_inv[:, :3, :3].reshape(mat.shape[0], 9)
+    t3 = -m_inv[:, :3, 3]
+    if focal_length is not None:
+        z0 = torch.log(focal_length)
+        s = 2.0 * focal_length / t3[:, 2]
+    else:
+        s = 1.0 / mat[:, 3, 3]
+        z0 = torch.zeros_like(s)
+    t2 = t3[:, :2] * s[:, None]
+    return torch.cat((z0[:, None], t2, s[:, None], rot), dim=-1)
 
 
 def rotation_matrix_distance(p: torch.Tensor,

@@ -2,14 +2,18 @@
 `nerf_from_image_tpu/core/rays.py`).
 
 The slice ports the perspective camera without a principal-point offset
-or bbox crop, and deterministic (jitter-free) depths.
+or bbox crop. Depths are evenly spaced, or jittered within their strata by
+uniform draws from a `torch.Generator` or given as a float array (the JAX
+package's injected draw).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import torch
+
+Draw = Union[torch.Generator, torch.Tensor]
 
 
 def get_ray_bundle(height: int, width: int, focal_length: torch.Tensor,
@@ -90,15 +94,27 @@ def compute_near_far_planes(ray_origins: torch.Tensor,
 def compute_query_points_from_rays(ray_origins: torch.Tensor,
                                    ray_directions: torch.Tensor,
                                    near: torch.Tensor, far: torch.Tensor,
-                                   num_samples: int
+                                   num_samples: int,
+                                   rng: Optional[Draw] = None
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Evenly spaced depths along each ray: lerp(near, far, i / N).
+    """Stratified depths along each ray: lerp(near, far, i / N), plus
+    U[0, 1) * (far - near) / N when `rng` is given (a `torch.Generator`,
+    or uniform draws of depth_values' shape).
 
     Returns (query_points (..., N, 3), depth_values (..., N)).
     """
     frac = torch.arange(num_samples, dtype=ray_origins.dtype,
                         device=ray_origins.device) / num_samples
     depth_values = near[..., None] + (far - near)[..., None] * frac
+    if rng is not None:
+        if isinstance(rng, torch.Tensor):
+            u = rng.reshape(depth_values.shape).to(depth_values.dtype)
+        else:
+            u = torch.rand(depth_values.shape, generator=rng,
+                           device=depth_values.device,
+                           dtype=depth_values.dtype)
+        depth_values = depth_values + u * ((far - near)[..., None] /
+                                           num_samples)
     query_points = (ray_origins[..., None, :] +
                     ray_directions[..., None, :] * depth_values[..., :, None])
     return query_points, depth_values

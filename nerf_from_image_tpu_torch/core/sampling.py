@@ -8,21 +8,27 @@ keep gathers off the TPU; a GPU gathers directly, so this port uses
 
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
 
 
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor,
-               num_samples: int) -> torch.Tensor:
-    """Deterministic inverse-transform sampling of `num_samples` depths.
+               num_samples: int,
+               rng: Optional[Union[torch.Generator, torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """Inverse-transform sampling of `num_samples` depths.
 
     Args:
       bins: (..., K) bin positions, sorted ascending.
       weights: (..., K - 1) interval weights (the CDF then has K entries,
         aligned with `bins`).
+      rng: None for the deterministic draws linspace(0, 1, num_samples);
+        a `torch.Generator` for uniform draws; or the uniform draws
+        themselves, a float array of shape (..., num_samples).
 
     Returns:
-      samples: (..., num_samples) depths in the dtype of `bins`. The
-      uniform draws are linspace(0, 1, num_samples).
+      samples: (..., num_samples) depths in the dtype of `bins`.
     """
     weights = weights.float() + 1e-5
     pdf = weights / weights.sum(dim=-1, keepdim=True)
@@ -30,9 +36,14 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor,
     cdf = torch.cat((torch.zeros_like(cdf[..., :1]), cdf), dim=-1)
     k = cdf.shape[-1]
 
-    u = torch.linspace(0.0, 1.0, num_samples, dtype=torch.float32,
-                       device=cdf.device)
-    u = u.expand(cdf.shape[:-1] + (num_samples,)).contiguous()
+    shape = cdf.shape[:-1] + (num_samples,)
+    if rng is None:
+        u = torch.linspace(0.0, 1.0, num_samples, dtype=torch.float32,
+                           device=cdf.device).expand(shape).contiguous()
+    elif isinstance(rng, torch.Tensor):
+        u = rng.reshape(shape).float().contiguous()
+    else:
+        u = torch.rand(shape, generator=rng, device=cdf.device)
     # below = the largest j with cdf[j] <= u (cdf[0] = 0, so it exists);
     # above = below + 1, clamped to the last entry.
     inds = torch.searchsorted(cdf.contiguous(), u, right=True)

@@ -9,27 +9,35 @@ Names follow the reference's state-dict keys (`mapping_network.backbone.*`,
 `synthesis_network.b*`, `decoder.net.{0,2}`, `texture_mapper.*`, `beta`,
 `alpha`), so a reference-format state dict loads unchanged. The slice
 ports the configuration every reference dataset trains: an SDF field
-(`--use_sdf` is always true there) with an attention palette. View
-directions, encoder, class embedding, noise injection, normals and SDF
-regularizers wait for later slices.
+(`--use_sdf` is always true there) with an attention palette, and the SDF
+regularizers of GAN training (eikonal, total variation, entropy). View
+directions, encoder, class embedding, noise injection and normals wait for
+later slices.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nerf_from_image_tpu_torch.core import grids
 from nerf_from_image_tpu_torch.device import DeviceLike, resolve_device
 from nerf_from_image_tpu_torch.models import stylegan
 from nerf_from_image_tpu_torch.ops import triplane
 from nerf_from_image_tpu_torch.ops import triplane_cuda
 
 PLANE_CHANNELS = 32
+# Points per batch entry of the palette product (see `palette_rgb`).
+PALETTE_CHUNK = 4096
+
+
+def laplace_pdf(x: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    return 0.5 * torch.exp(-x.abs() / beta) / beta
 
 
 def laplace_cdf(x: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
@@ -39,6 +47,27 @@ def laplace_cdf(x: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
 def wide_sigmoid_rescaled(x: torch.Tensor) -> torch.Tensor:
     """MipNeRF wide sigmoid rescaled to ~[-1, 1]."""
     return torch.sigmoid(x) * 2.004 - 1.002
+
+
+def palette_rgb(probs: torch.Tensor, palette: torch.Tensor) -> torch.Tensor:
+    """Per-point colour: (B, N, K) palette probabilities times the (B, K, 3)
+    palette -> (B, N, 3), in the probabilities' dtype.
+
+    The points are split into chunks of PALETTE_CHUNK (or of the largest
+    power of two that divides N, if that is at least an eighth of it),
+    each a batch entry of one product against its image's palette. The
+    product's backward to the palette is then a sum over each chunk's
+    points, run by many blocks at once, and a sum of the (B, chunks, K, 3)
+    partials, where one product per image would reduce all N points into
+    a K x 3 output on a handful of blocks.
+    """
+    b, n, k = probs.shape
+    chunk = math.gcd(n, PALETTE_CHUNK)
+    palette = palette.to(probs.dtype)
+    if chunk < PALETTE_CHUNK // 8:
+        return torch.bmm(probs, palette)
+    per_chunk = palette[:, None].expand(b, n // chunk, k, 3).reshape(-1, k, 3)
+    return torch.bmm(probs.reshape(-1, chunk, k), per_chunk).reshape(b, n, 3)
 
 
 class ConditionalLayerNorm(nn.Module):
@@ -233,6 +262,70 @@ class Generator(nn.Module):
                                                  oob)
         if 'rgb' in requests:
             probs = torch.softmax(dec['features'], dim=-1)
-            outputs['rgb'] = torch.bmm(
-                probs, state.attention_values.to(probs.dtype))
+            outputs['rgb'] = palette_rgb(probs, state.attention_values)
+        return outputs
+
+    def sdf_losses(self, planes_cl: torch.Tensor,
+                   rng: Union[torch.Generator, Dict[str, torch.Tensor]],
+                   requests: Sequence[str] = ('sdf_eikonal_loss',),
+                   nstrata: int = 32) -> Dict[str, torch.Tensor]:
+        """Eikonal, total-variation and entropy losses on stratified
+        volume samples, each (B,).
+
+        The decodes run on `ops.triplane.sample_triplane_gather`, which
+        autograd differentiates twice: the eikonal loss is a function of
+        the SDF's gradient to the points, and the step differentiates it
+        again to the planes and the decoder.
+
+        Args:
+          planes_cl: (B, 3, R, R, 32) channel-last planes.
+          rng: a `torch.Generator` (the strata jitter, then the
+            perturbation, on its device), or the draws themselves,
+            {'strata': uniform (B, n, n, n, 3), 'perturb': normal
+            (B, n^3, 3)} with n = nstrata - 1.
+          requests: a subset of {'sdf_eikonal_loss',
+            'total_variation_loss', 'entropy_loss'}.
+        """
+        unknown = set(requests) - {'sdf_eikonal_loss',
+                                   'total_variation_loss', 'entropy_loss'}
+        if unknown:
+            raise NotImplementedError(f'requests not ported yet: {unknown}')
+        bs = planes_cl.shape[0]
+        strata = rng['strata'] if isinstance(rng, dict) else rng
+        bins_in = grids.sample_volume_stratified(strata, bs, nstrata,
+                                                 self.scene_range)
+
+        def decode_d(pts):
+            feats = triplane.sample_triplane_gather(
+                planes_cl, (pts / self.scene_range).contiguous())
+            return self.decoder.mlp(feats.to(self.dtype))[
+                'density_or_distance'][..., -1]
+
+        outputs = {}
+        if 'sdf_eikonal_loss' in requests:
+            pts = bins_in.requires_grad_()
+            d = decode_d(pts)
+            grad, = torch.autograd.grad(d.sum(), pts, create_graph=True)
+            magnitude = torch.linalg.vector_norm(grad, dim=-1)
+            outputs['sdf_eikonal_loss'] = (magnitude - 1.0).square().reshape(
+                bs, -1).mean(dim=1)
+        else:
+            d = decode_d(bins_in)
+
+        def mean(x):
+            return x.reshape(bs, -1).mean(dim=1)
+
+        if 'total_variation_loss' in requests:
+            if isinstance(rng, dict):
+                noise = rng['perturb'].reshape(bins_in.shape)
+            else:
+                noise = torch.randn(bins_in.shape, generator=rng,
+                                    device=bins_in.device)
+            perturbed = bins_in.detach() + noise * 0.004 * self.scene_range
+            d_perturb = decode_d(perturbed)
+            outputs['total_variation_loss'] = mean(
+                (laplace_cdf(-d, self.beta) -
+                 laplace_cdf(-d_perturb, self.beta)).abs())
+        if 'entropy_loss' in requests:
+            outputs['entropy_loss'] = mean(laplace_pdf(-d, self.beta))
         return outputs

@@ -1,5 +1,6 @@
-"""StyleGAN2 backbone: equalized layers, modulated conv, mapping and
-synthesis (PyTorch port of `nerf_from_image_tpu/models/stylegan.py`).
+"""StyleGAN2 backbone: equalized layers, modulated conv, mapping,
+synthesis and the discriminator (PyTorch port of
+`nerf_from_image_tpu/models/stylegan.py`).
 
 Module and parameter names follow the reference checkpoints, so a
 reference-format state dict loads with `load_state_dict` as it is,
@@ -7,8 +8,8 @@ including the `resample_filter` and `noise_const` buffers. Parameters stay
 float32; activations run in the module's `dtype` (bfloat16 on the card).
 Each module draws its initial values from the `torch.Generator` it is
 given. The slice runs without noise injection (the generator's default),
-so `noise_strength` and `noise_const` are held but not read; the
-discriminator parts wait for a later slice.
+so `noise_strength` and `noise_const` are held but not read. The
+convolutions are PyTorch's (cuDNN on the card), as JAX leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -24,9 +25,15 @@ from nerf_from_image_tpu_torch.ops import resample
 
 
 def conv_resampled2d(x: torch.Tensor, w: torch.Tensor, up: bool = False,
-                     padding: int = 0) -> torch.Tensor:
-    """Conv, or transposed conv + bilinear filter for 2x upsampling."""
+                     down: bool = False, padding: int = 0) -> torch.Tensor:
+    """Conv, with 2x bilinear upsampling (transposed conv, then the
+    filter) or downsampling (a 1x1 conv after `downsample2d`, or the
+    transposed filter then a stride-2 conv)."""
     w = w.to(x.dtype)
+    if down:
+        if w.shape[-1] == 1:
+            return F.conv2d(resample.downsample2d(x), w)
+        return F.conv2d(resample.filter2d(x, transpose=True), w, stride=2)
     if up:
         x = F.conv_transpose2d(x, w.transpose(0, 1), stride=2)
         return resample.filter2d(x, gain=4.0)
@@ -79,30 +86,76 @@ class EqualizedLinear(nn.Module):
         return y
 
 
+class EqualizedConv2d(nn.Module):
+    """Conv layer with runtime weight scaling and optional 2x downsampling.
+
+    Holds the reference's `resample_filter` buffer (the bilinear filter
+    the resampling applies), so reference state dicts load as they are.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, bias: bool = True, activate: bool = False,
+                 down: bool = False, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.activate = activate
+        self.down = down
+        self.padding = kernel_size // 2
+        self.weight_gain = 1.0 / math.sqrt(in_channels * kernel_size ** 2)
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.randn(
+            (out_channels, in_channels, kernel_size, kernel_size),
+            generator=generator))
+        self.bias = (nn.Parameter(torch.zeros(out_channels)) if bias
+                     else None)
+        self.register_buffer('resample_filter', resample.bilinear_filter())
+
+    def forward(self, x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
+        w = (self.weight * self.weight_gain).to(self.dtype)
+        x = conv_resampled2d(x.to(self.dtype), w, down=self.down,
+                             padding=self.padding)
+        if self.bias is not None:
+            x = x + self.bias.reshape(1, -1, 1, 1).to(self.dtype)
+        act_gain = (math.sqrt(2.0) if self.activate else 1.0) * gain
+        if act_gain != 1.0:
+            x = x * act_gain
+        if self.activate:
+            x = F.leaky_relu(x, 0.2)
+        return x
+
+
 def normalize_latent(x: torch.Tensor, dim: int = -1,
                      eps: float = 1e-8) -> torch.Tensor:
     return x * torch.rsqrt(x.square().mean(dim=dim, keepdim=True) + eps)
 
 
 class MappingNetwork(nn.Module):
-    """z -> w, broadcast to `num_ws` (unconditional)."""
+    """z (normalized) and/or a conditioning vector c (as it is, the
+    reference's `normalize_c=False`) -> w, broadcast to `num_ws`."""
 
     def __init__(self, z_dim: int, w_dim: int, num_ws: Optional[int],
                  num_layers: int = 8, lr_multiplier: float = 0.01,
-                 dtype: torch.dtype = torch.float32,
+                 c_dim: int = 0, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.z_dim, self.c_dim = z_dim, c_dim
         self.num_ws = num_ws
         self.num_layers = num_layers
         self.dtype = dtype
         for idx in range(num_layers):
             setattr(self, f'fc{idx}', EqualizedLinear(
-                z_dim if idx == 0 else w_dim, w_dim, activate=True,
+                z_dim + c_dim if idx == 0 else w_dim, w_dim, activate=True,
                 lr_multiplier=lr_multiplier, dtype=dtype,
                 generator=generator))
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        x = normalize_latent(z.to(self.dtype))
+    def forward(self, z: Optional[torch.Tensor],
+                c: Optional[torch.Tensor] = None) -> torch.Tensor:
+        parts = []
+        if self.z_dim > 0:
+            parts.append(normalize_latent(z.to(self.dtype)))
+        if self.c_dim > 0:
+            parts.append(c.to(self.dtype))
+        x = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
         for idx in range(self.num_layers):
             x = getattr(self, f'fc{idx}')(x)
         if self.num_ws is not None:
@@ -241,3 +294,112 @@ class SynthesisNetwork(nn.Module):
             x, img = block(x, img, ws[:, w_idx:w_idx + block.num_conv + 1])
             w_idx += block.num_conv
         return img
+
+
+class DiscriminatorBlock(nn.Module):
+    """Residual down block: fromRGB (first block only), a 1x1 skip that
+    downsamples, and two 3x3 convs, the second downsampling."""
+
+    def __init__(self, in_channels: int, tmp_channels: int,
+                 out_channels: int, img_channels: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_channels = in_channels
+        if in_channels == 0:
+            self.fromrgb = EqualizedConv2d(img_channels, tmp_channels, 1,
+                                           activate=True, dtype=dtype,
+                                           generator=generator)
+        self.skip = EqualizedConv2d(tmp_channels, out_channels, 1,
+                                    bias=False, down=True, dtype=dtype,
+                                    generator=generator)
+        self.conv0 = EqualizedConv2d(tmp_channels, tmp_channels, 3,
+                                     activate=True, dtype=dtype,
+                                     generator=generator)
+        self.conv1 = EqualizedConv2d(tmp_channels, out_channels, 3,
+                                     activate=True, down=True, dtype=dtype,
+                                     generator=generator)
+
+    def forward(self, x: Optional[torch.Tensor],
+                img: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        if self.in_channels == 0:
+            y = self.fromrgb(img)
+            x = x + y if x is not None else y
+            img = None
+        y = self.skip(x, gain=math.sqrt(2.0) / 2.0)
+        x = self.conv0(x)
+        x = self.conv1(x, gain=math.sqrt(2.0) / 2.0)
+        return y + x, img
+
+
+def minibatch_std(x: torch.Tensor, group_size: int,
+                  num_channels: int = 1) -> torch.Tensor:
+    """Appends per-group feature stddev channels.
+
+    Sample i falls in group i % (B / group_size), as in the JAX package;
+    the statistics are float32.
+    """
+    bs, nc, h, w = x.shape
+    ng, f = group_size, num_channels
+    y = x.reshape(ng, bs // ng, f, nc // f, h, w).float()
+    y = y - y.mean(dim=0, keepdim=True)
+    y = torch.sqrt(y.square().mean(dim=0) + 1e-8)
+    y = y.mean(dim=(2, 3, 4))  # (bs // ng, f)
+    y = y.reshape(-1, f, 1, 1).to(x.dtype).repeat(ng, 1, h, w)
+    return torch.cat((x, y), dim=1)
+
+
+class DiscriminatorOutput(nn.Module):
+    """4x4 head: minibatch-std over groups of 4, conv, fc, out, and the
+    projection onto the conditioning's mapped vector."""
+
+    def __init__(self, in_channels: int, cmap_dim: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cmap_dim = cmap_dim
+        self.conv = EqualizedConv2d(in_channels + 1, in_channels, 3,
+                                    activate=True, dtype=dtype,
+                                    generator=generator)
+        self.fc = EqualizedLinear(in_channels * 16, in_channels,
+                                  activate=True, dtype=dtype,
+                                  generator=generator)
+        self.out = EqualizedLinear(in_channels, cmap_dim, dtype=dtype,
+                                   generator=generator)
+
+    def forward(self, x: torch.Tensor, cmap: torch.Tensor) -> torch.Tensor:
+        x = self.conv(minibatch_std(x, 4))
+        x = self.out(self.fc(x.reshape(x.shape[0], -1)))
+        return (x * cmap).sum(dim=1, keepdim=True) / math.sqrt(self.cmap_dim)
+
+
+class DiscriminatorBackbone(nn.Module):
+    """Conditional residual discriminator: blocks b<res> down to b8, the
+    conditioning's two-layer mapping network, and the b4 head."""
+
+    def __init__(self, c_dim: int, img_resolution: int, img_channels: int,
+                 channel_base: int = 32768, channel_max: int = 512,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.resolutions = [2 ** i for i in range(
+            int(math.log2(img_resolution)), 2, -1)]
+        channels = {r: min(channel_base // r, channel_max)
+                    for r in self.resolutions + [4]}
+        for res in self.resolutions:
+            in_ch = channels[res] if res < img_resolution else 0
+            setattr(self, f'b{res}', DiscriminatorBlock(
+                in_ch, channels[res], channels[res // 2], img_channels,
+                dtype=dtype, generator=generator))
+        self.mapping = MappingNetwork(0, channels[4], None, num_layers=2,
+                                      lr_multiplier=0.01, c_dim=c_dim,
+                                      dtype=dtype, generator=generator)
+        self.b4 = DiscriminatorOutput(channels[4], channels[4], dtype=dtype,
+                                      generator=generator)
+
+    def forward(self, img: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        x = None
+        for res in self.resolutions:
+            x, img = getattr(self, f'b{res}')(x, img)
+        return self.b4(x, self.mapping(None, c))

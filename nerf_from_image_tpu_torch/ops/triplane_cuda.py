@@ -5,19 +5,22 @@ The forward kernel (`csrc/triplane_sample.cu`) replaces TPU kernel B1,
 `_resident_kernel` in `nerf_from_image_tpu/ops/pallas/triplane_window.py`;
 the backward kernel (`csrc/triplane_sample_grad.cu`) replaces TPU kernel
 B2, `_resident_grad_kernel` in the same file, and gives the gradients of
-the planes and of the coordinates. `sample_triplane` runs both through one
-`autograd.Function` (`ops.triplane.TriplaneSample`): for tensors that lie
-on the CPU it takes the plain versions (`ops/triplane.py`); for CUDA
-tensors it launches the kernels or raises.
+the planes and of the coordinates; the planes-only backward kernel
+(`csrc/triplane_sample_grad_planes.cu`) replaces TPU kernel B4,
+`_resident_grad_planes_kernel`, and runs when the coordinates need no
+gradient (the GAN train steps, whose poses are data). `sample_triplane`
+runs them through one `autograd.Function` (`ops.triplane.TriplaneSample`):
+for tensors that lie on the CPU it takes the plain versions
+(`ops/triplane.py`); for CUDA tensors it launches the kernels or raises.
 
-`launches` and `grad_launches` count kernel launches, so a run can show
-that its path went through the kernels.
+`launches`, `grad_launches` and `grad_planes_launches` count kernel
+launches, so a run can show that its path went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -26,10 +29,12 @@ from nerf_from_image_tpu_torch.ops import triplane
 
 KERNEL = 'triplane_sample'
 GRAD_KERNEL = 'triplane_sample_grad'
+GRAD_PLANES_KERNEL = 'triplane_sample_grad_planes'
 CHANNELS = 32
 
 launches = 0
 grad_launches = 0
+grad_planes_launches = 0
 
 
 def _function():
@@ -44,6 +49,15 @@ def _function():
 def _grad_function():
     fn = cuda_build.load_library(GRAD_KERNEL).triplane_sample_grad_bf16
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _grad_planes_function():
+    fn = cuda_build.load_library(
+        GRAD_PLANES_KERNEL).triplane_sample_grad_planes_bf16
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64,
                                            ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -150,6 +164,45 @@ def launch_grad(planes_cl: torch.Tensor, coords: torch.Tensor,
     return dplanes.to(planes_cl.dtype), dcoords
 
 
+def launch_grad_planes(plane_shape: Sequence[int], coords: torch.Tensor,
+                       grad_out: torch.Tensor) -> torch.Tensor:
+    """Runs the planes-only backward kernel: coords (B, N, 3) f32 and
+    grad_out (B, N, 32) bf16 on the card -> dplanes (B, 3, R, R, 32) f32,
+    for planes of `plane_shape`. The planes themselves are not read."""
+    global grad_planes_launches
+    b, three, r, r2, c = plane_shape
+    n = coords.shape[1] if coords.ndim == 3 else -1
+    if (three != 3 or r != r2 or c != CHANNELS or coords.ndim != 3 or
+            coords.shape[0] != b or coords.shape[2] != 3 or
+            coords.dtype != torch.float32 or not coords.is_contiguous()):
+        raise ValueError(f'planes (B, 3, R, R, {CHANNELS}) and contiguous '
+                         f'float32 coords (B, N, 3), got {tuple(plane_shape)}'
+                         f' and {coords.dtype} {tuple(coords.shape)}')
+    if (grad_out.shape != (b, n, c) or grad_out.dtype != torch.bfloat16 or
+            grad_out.device != coords.device or
+            not grad_out.is_contiguous()):
+        raise ValueError(f'grad_out must be contiguous bfloat16 {(b, n, c)} '
+                         f'on {coords.device}, got {grad_out.dtype} '
+                         f'{tuple(grad_out.shape)} on {grad_out.device}')
+    if coords.device.type != 'cuda':
+        raise ValueError(f'the CUDA kernel needs CUDA tensors, got '
+                         f'{coords.device}')
+    dplanes = torch.zeros(tuple(plane_shape), dtype=torch.float32,
+                          device=coords.device)
+    if coords.numel() == 0:
+        return dplanes
+    fn = _grad_planes_function()
+    with torch.cuda.device(coords.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(coords.data_ptr(), grad_out.data_ptr(), dplanes.data_ptr(),
+                 b, n, r, stream)
+    if err != 0:
+        raise RuntimeError(f'{GRAD_PLANES_KERNEL} launch failed: cudaError '
+                           f'{err}')
+    grad_planes_launches += 1
+    return dplanes
+
+
 def sample_triplane(planes_cl: torch.Tensor,
                     coords: torch.Tensor) -> torch.Tensor:
     """Averaged triplane features at normalized coords, differentiable to
@@ -158,9 +211,10 @@ def sample_triplane(planes_cl: torch.Tensor,
     planes_cl: (B, 3, R, R, 32) channel-last planes; coords: (B, N, 3)
     float32 in [-1, 1]. Returns (B, N, 32) in the planes' dtype. On the
     CPU the planes may be float32 or bfloat16; the kernels take bfloat16.
+    The backward runs B4 when only the planes want a gradient, else B2.
     """
     _check(planes_cl, coords)
     if planes_cl.device.type == 'cpu':
         return triplane.plain_sampler(planes_cl, coords)
     return triplane.TriplaneSample.apply(planes_cl, coords, launch,
-                                         launch_grad)
+                                         launch_grad, launch_grad_planes)

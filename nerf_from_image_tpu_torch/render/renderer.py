@@ -2,9 +2,9 @@
 composite (PyTorch port of `nerf_from_image_tpu/render/renderer.py`).
 
 The field is `sample_fn(points, requests) -> dict`, as in the JAX package.
-The port renders deterministically (no jitter) sigma and rgb with a
-perspective camera; normals, semantics, coordinates, bbox and principal-
-point crops wait for later slices. The render differentiates to the field
+The port renders sigma and rgb with a perspective camera, deterministically
+or with jittered depths and random PDF draws; normals, semantics,
+coordinates, bbox and principal-point crops wait for later slices. The render differentiates to the field
 and to the camera, as JAX's does: near/far, the coarse weights and the
 fine depths are detached, and the points of both passes carry the
 camera's gradient through the rays.
@@ -13,7 +13,7 @@ camera's gradient through the rays.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import torch
 
@@ -44,13 +44,20 @@ def normalize(x: torch.Tensor, dim: int = -1,
 def render(sample_fn: SampleFn, height: int, width: int,
            cam2world: torch.Tensor, focal_length: torch.Tensor,
            scene_range: float, white_background: bool,
-           depth_samples_per_ray: int) -> RenderOutput:
-    """Renders a batch of views with deterministic sampling.
+           depth_samples_per_ray: int,
+           rng: Optional[Union[torch.Generator,
+                               Dict[str, torch.Tensor]]] = None
+           ) -> RenderOutput:
+    """Renders a batch of views.
 
     Args:
       cam2world: (B, 4, 4) float32; focal_length: (B,) float32.
       depth_samples_per_ray: S coarse and S fine samples per ray (the
         reference always samples fine: `--fine_sampling` is always true).
+      rng: None for deterministic sampling; a `torch.Generator` for
+        jittered coarse depths and random PDF draws (drawn in that order);
+        or those draws themselves, {'depth': uniform (B, H, W, S),
+        'pdf_u': uniform (B * H * W, S)}, as the JAX package injects them.
     """
     b = cam2world.shape[0]
     s = depth_samples_per_ray
@@ -59,8 +66,11 @@ def render(sample_fn: SampleFn, height: int, width: int,
     ray_directions = normalize(ray_directions)
     near, far = rays_lib.compute_near_far_planes(ray_origins,
                                                  ray_directions, scene_range)
+    rng_coarse = rng_fine = rng
+    if isinstance(rng, dict):
+        rng_coarse, rng_fine = rng.get('depth'), rng.get('pdf_u')
     query_points, depth_values = rays_lib.compute_query_points_from_rays(
-        ray_origins, ray_directions, near, far, s)
+        ray_origins, ray_directions, near, far, s, rng=rng_coarse)
 
     requests = ('sigma', 'rgb')
 
@@ -77,7 +87,7 @@ def render(sample_fn: SampleFn, height: int, width: int,
     weights = sampling.smooth_weights_eg3d(weights.reshape(-1, s))
     z_mid = 0.5 * (depth_values[..., 1:] + depth_values[..., :-1])
     z_samples = sampling.sample_pdf(z_mid.reshape(-1, s - 1),
-                                    weights[..., 1:-1], s)
+                                    weights[..., 1:-1], s, rng=rng_fine)
     z_samples = torch.sort(z_samples, dim=-1).values
     z_samples = z_samples.reshape(b, height, width, s).detach()
     query_points_fine = (ray_origins[..., None, :] +

@@ -5,11 +5,14 @@ so a reference state dict loads with `load_reference_state_dict`.
 `from_jax_params` goes the other way from the JAX package's converter
 (`nerf_from_image_tpu/utils/torch_convert.py:convert_generator`): it turns
 a JAX `Generator`'s variables, as numpy arrays, into a reference-format
-state dict. The LPIPS leg builds reference-format LPIPS weights from a
-seed (`random_lpips_state_dicts`) and loads reference LPIPS weights into
-the port (`load_lpips_state_dicts`): the same two dicts that the JAX
-package's `convert_lpips` takes. This module holds numpy only and imports
-no JAX.
+state dict, and `from_jax_discriminator` does the same for a JAX
+`Discriminator` (the other way from `convert_discriminator`).
+`random_discriminator_state_dict` draws a reference-format discriminator
+state dict from a seed. The LPIPS leg builds reference-format LPIPS
+weights from a seed (`random_lpips_state_dicts`) and loads reference LPIPS
+weights into the port (`load_lpips_state_dicts`): the same two dicts that
+the JAX package's `convert_lpips` takes. This module holds numpy only and
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from torch import nn
 
 from nerf_from_image_tpu_torch.models import lpips
+from nerf_from_image_tpu_torch.models import stylegan
 
 # JAX tree paths whose reference names differ (prefix renames).
 _RENAMES = (
@@ -80,6 +84,50 @@ def from_jax_params(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
                 owners.add(m.group(1) + '.' + m.group(2)[:-1])
     for owner in owners:
         sd[f'{owner}.resample_filter'] = filt.copy()
+    return sd
+
+
+# Discriminator convolutions: each holds the reference's resample_filter.
+_DISC_CONV = re.compile(
+    r'(backbone\.b\d+\.(?:fromrgb|skip|conv0|conv1|conv))\.weight$')
+
+
+def from_jax_discriminator(variables: Mapping[str, Any]
+                           ) -> Dict[str, np.ndarray]:
+    """JAX Discriminator variables ({'params': tree} of numpy arrays) ->
+    reference-format state dict, with the `resample_filter` buffer of
+    every convolution added."""
+    sd = {key: np.asarray(value, dtype=np.float32)
+          for key, value in _flatten(variables['params'])}
+    for key in list(sd):
+        m = _DISC_CONV.match(key)
+        if m:
+            sd[f'{m.group(1)}.resample_filter'] = _bilinear_filter()
+    return sd
+
+
+def random_discriminator_state_dict(seed: int, resolution: int, nc: int,
+                                    channel_base: int = 32768,
+                                    channel_max: int = 512
+                                    ) -> Dict[str, np.ndarray]:
+    """A reference-format discriminator state dict drawn from `seed`:
+    standard-normal weights (divided by the mapping's lr multiplier 0.01,
+    as the reference initializes them), small random biases."""
+    rng = np.random.default_rng(seed)
+    shapes = stylegan.DiscriminatorBackbone(
+        13, resolution, nc, channel_base=channel_base,
+        channel_max=channel_max).state_dict()
+    sd = {}
+    for key, value in shapes.items():
+        if key.endswith('resample_filter'):
+            sd[f'backbone.{key}'] = _bilinear_filter()
+            continue
+        draw = rng.standard_normal(tuple(value.shape))
+        if key.endswith('bias'):
+            draw = draw * 0.1
+        elif key.startswith('mapping.'):
+            draw = draw / 0.01
+        sd[f'backbone.{key}'] = draw.astype(np.float32)
     return sd
 
 

@@ -166,8 +166,10 @@ def test_sample_transform_draws_from_the_generator():
 def test_augment_reuses_a_cached_transform():
     rng = np.random.default_rng(3)
     img = _t(rng.uniform(-1, 1, (4, 3, 16, 16)))
-    out, tform = augment.augment(torch.Generator().manual_seed(0), img, 1.0,
-                                 white_background=False)
-    again, same = augment.augment(None, img, 1.0, white_background=False,
-                                  cached_tform=tform)
+    out, _, _, tform = augment.augment(torch.Generator().manual_seed(0),
+                                       img, None, None, 1.0,
+                                       white_background=False)
+    again, _, _, same = augment.augment(None, img, None, None, 1.0,
+                                        white_background=False,
+                                        cached_tform=tform)
     assert same is tform and torch.equal(out, again)
