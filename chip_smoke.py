@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`nerf_from_image_tpu_torch`) on one card.
 
-Drives the port's three paths at full width with random weights from a
-seed (latent 512, 256^2 triplanes of 32 channels, 10 attention values,
+Drives the port's paths at full width with random weights from a seed
+(latent 512, 256^2 triplanes of 32 channels, 10 attention values,
 bfloat16 activations, batch 8, 128x128 rays, 64 coarse + 64 fine
 samples):
 
 - the render forward at bench.py's operating point (camera at z = 2.0,
-  focal 1.2);
+  focal 1.2), through the sampler and, with `fuse_decode`, through the
+  fused sample + decoder tail; the same at 512^2 planes (the JAX CLI's
+  `--plane_resolution 512`);
 - the hybrid-inversion refinement step in the p3d_car geometry (scene
   range 1.4, black background, flipped perspective camera with z0 and
   the pose optimized): render -> VGG LPIPS on the image and 15 random
@@ -18,19 +20,29 @@ samples):
   jittered depths from ADA-augmented poses, 4-channel discriminator,
   eikonal/tv/entropy, Adam, EMA) and a discriminator step (ADA on the 2x
   real images, R1, fakes rendered without a graph), against a real batch
-  rendered once from a second latent at 256^2.
+  rendered once from a second latent at 256^2;
+- the hybrid inversion of one batch in the p3d_car geometry: the
+  bootstrap encoder (MiT-B5 SegFormer), host PnP, the initial
+  parameters, 30 refinement steps with the checkpoint evaluations at
+  steps 0 and 30 (front and novel views, their renders through the fused
+  sample + decoder tail), and the consolidated report.
 
 Phases, each printed as one JSON line:
 
   device     the card, its power limit, the precision settings
-  build      nvcc builds every kernel source, all at once
-  kernel     each kernel (B1, B2, B4, B3 forward, B3 backward) against
+  build      nvcc builds every kernel source, all at once, while the host
+             C++ compiler builds the PnP solver
+  kernel     each kernel (B1, B2, B4, B3 forward, B3 backward, B5a) against
              its plain PyTorch version at the shapes its path gives it; its
              time, bound and library yardstick
   model      the full-width generator is built
   slice      map -> synthesize -> render through the kernels (launch counts
              reset just before and read just after), output checks, the same
-             render with the plain sampler, ms per render and rays/s
+             render with the plain sampler, ms per render and rays/s; the
+             render with fuse_decode (B5a) against the plain render
+  r512       the render at 512^2 planes: B1 and B5a against their plain
+             versions at its coarse pass (the B6 and B5b rows), the render
+             unfused and fused, each against the plain render, and their ms
   inversion  run_inversion through the kernels (counts reset just before
              and read just after), ms per step, the per-step metrics, and
              one step against the same step on the plain sampler and warp
@@ -38,6 +50,10 @@ Phases, each printed as one JSON line:
              and read just after each step), ms per step and per pair,
              images/s, peak memory, the losses; one G step against the same
              step on the plain sampler; one D step at iteration 1
+  pipeline   bootstrap -> PnP -> init -> evaluation -> 30 steps ->
+             evaluation -> report, ms per stage, launch counts per stage
+             (B5a only in the evaluations, never B1 there; never B5a in the
+             steps), the report's numbers and PnP's fallback count
   profile    the render's stages timed with CUDA events; one render, one
              inversion step, one G step and one D step traced with
              torch.profiler: device busy time, its idle share of the traced
@@ -53,8 +69,10 @@ non-zero before any result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -67,7 +85,11 @@ from nerf_from_image_tpu_torch.core import augment
 from nerf_from_image_tpu_torch.core import pose as pose_lib
 from nerf_from_image_tpu_torch.core import rays as rays_lib
 from nerf_from_image_tpu_torch.invert import optimizer as inv
+from nerf_from_image_tpu_torch.invert import pipeline
+from nerf_from_image_tpu_torch.invert import pnp
+from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
 from nerf_from_image_tpu_torch.models.generator import Generator
+from nerf_from_image_tpu_torch.models.generator import palette_rgb
 from nerf_from_image_tpu_torch.models.lpips import LPIPS
 from nerf_from_image_tpu_torch.ops import cuda_build
 from nerf_from_image_tpu_torch.ops import triplane
@@ -91,6 +113,7 @@ GEN_KWARGS = dict(latent_dim=512, scene_range=SCENE_RANGE,
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # float32 outside the tensor cores
+BF16_FLOPS = 989e12  # bf16 tensor cores
 
 # Kernel against plain version: both sum the same bf16 texels in float32;
 # they differ only in the order of the 12-tap sum and in where the one
@@ -115,6 +138,16 @@ WARP_ATOL = 1e-5
 # B3 backward: each image pixel sums the float32 products of up to 60
 # crop-pixel taps, the kernel with atomics in another order.
 WARP_GRAD_RTOL = 1e-5
+# B5a (and B5b) against its plain version: the same float32 products of
+# the same bf16 values, summed in another order, so a rounding to bf16 (of
+# a feature, a hidden unit, a probability or the output) can land one ulp
+# apart; two such roundings are 2 x 2^-8 of the largest value.
+FUSED_RTOL_OF_MAX = 2e-2
+# The render with the fused decode against the plain (unfused) render: the
+# fused call keeps the decoder's sums in float32 and rounds d once, where
+# the unfused bf16 decoder rounds each layer's output, so sigma and rgb
+# move by up to two bf16 roundings more than the B1 render does (2e-2).
+FUSED_RENDER_ATOL = 3e-2
 
 # The inversion: p3d_car's geometry (nerf_from_image_tpu/config.py:181)
 # and the reference's refinement settings.
@@ -131,6 +164,22 @@ INV_STEPS = 5  # steps of the driven run, and timed steps after a warm-up
 # noise, far below what a wrong tap, plane, axis or sign gives (order 1).
 STEP_LOSS_RTOL = 1e-2  # |loss_k - loss_p| / |loss_p|
 STEP_GRAD_RTOL = 5e-2  # ||g_k - g_p|| / ||g_p||, for z and R
+
+# The hybrid inversion of one batch (nerf_from_image_tpu/cli/inversion.py):
+# checkpoint steps 0 and 30, PnP over the percentiles of the focals, the
+# encoder's w over every slot.
+PIPELINE_STEPS = 30
+# The random encoder's coordinate head is rescaled to this spread about
+# the origin and its mask logit shifted so that as many pixels pass PnP's
+# cut as the targets have foreground, from one forward on the targets:
+# with a head drawn at random, the coordinates fall anywhere and the mask
+# under the cut, so every image takes the dummy pose, which faces away
+# from the box, and all the batch's rays miss it (non-finite depths, in
+# the JAX package too). The dummy pose is checked separately on a zeroed
+# mask.
+COORD_SPREAD = 0.5
+PNP_MASK_CUT = 0.9  # invert/pnp.estimate_poses_batch keeps mask > 0.9
+PERM_BBOX = ((-0.9, -0.9), (1.8, 1.8))  # the novel views' crop
 
 # GAN training: p3d_car as the JAX CLI builds it
 # (nerf_from_image_tpu/config.py:181-186, 224-228), one card's batch of 8.
@@ -149,7 +198,7 @@ TRAIN_PAIRS = 5  # timed G + D pairs, after one warm-up pair
 # the ADA warp is plain PyTorch (no B3).
 G_STEP_LAUNCHES = {'triplane_sample': 2, 'triplane_sample_grad': 0,
                    'triplane_sample_grad_planes': 2, 'warp_forward': 0,
-                   'warp_backward': 0}
+                   'warp_backward': 0, 'triplane_sample_fused': 0}
 D_STEP_LAUNCHES = dict(G_STEP_LAUNCHES, triplane_sample_grad_planes=0)
 
 TRIPLANE_TPU_KERNEL = 'nerf_from_image_tpu/ops/pallas/triplane_window.py:282'
@@ -162,6 +211,12 @@ GRAD_PLANES_SOURCE = (
     'nerf_from_image_tpu_torch/ops/csrc/triplane_sample_grad_planes.cu')
 WARP_TPU_KERNEL = 'nerf_from_image_tpu/ops/pallas/warp.py:73'
 WARP_SOURCE = 'nerf_from_image_tpu_torch/ops/csrc/warp.cu'
+FUSED_TPU_KERNEL = 'nerf_from_image_tpu/ops/pallas/triplane_window.py:292'
+FUSED_SOURCE = 'nerf_from_image_tpu_torch/ops/csrc/triplane_sample_fused.cu'
+WINDOW_FUSED_TPU_KERNEL = (
+    'nerf_from_image_tpu/ops/pallas/triplane_window.py:600')
+WINDOW_TPU_KERNEL = 'nerf_from_image_tpu/ops/pallas/triplane_window.py:656'
+R512 = 512  # the second plane resolution
 
 
 def emit(phase: str, started: float, **fields) -> None:
@@ -240,23 +295,36 @@ def device_phase() -> dict:
 def build_phase() -> None:
     started = time.perf_counter()
     sources = [triplane_cuda.KERNEL, triplane_cuda.GRAD_KERNEL,
-               triplane_cuda.GRAD_PLANES_KERNEL, warp.KERNEL]
-    cuda_build.build(sources)
+               triplane_cuda.GRAD_PLANES_KERNEL, warp.KERNEL,
+               triplane_cuda.FUSED_KERNEL]
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        pnp_build = pool.submit(pnp.load_library)
+        cuda_build.build(sources)
+        pnp_build.result()
+    pnp_seconds = time.perf_counter() - started
     ptxas = {name: [line.strip() for line in
                     cuda_build.build_log.get(name, '').splitlines()
                     if 'registers' in line or 'spill' in line]
              for name in sources}
     emit('build', started, nvcc_seconds=cuda_build.build_seconds,
-         ptxas=ptxas)
+         pnp_library=str(pnp.library_path().name),
+         pnp_done_seconds=pnp_seconds, ptxas=ptxas)
 
 
-def bound(bytes_moved: float, flops: float) -> dict:
-    """The least time for the work: bytes over the memory rate or
-    operations over the float32 rate, whichever is larger."""
+def bound(bytes_moved: float, flops: float, bf16_flops: float = 0.0
+          ) -> dict:
+    """The least time for the work: bytes over the memory rate, float32
+    operations over the float32 rate, or bf16 products over the bf16
+    tensor-core rate, whichever is largest (the three run on separate
+    units, which can overlap)."""
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / F32_FLOPS * 1e3
-    return {'bytes': bytes_moved, 'flops': flops, 'bytes_ms': bytes_ms,
-            'flops_ms': flops_ms, 'bound_ms': max(bytes_ms, flops_ms),
+    f32_ms = flops / F32_FLOPS * 1e3
+    bf16_ms = bf16_flops / BF16_FLOPS * 1e3
+    flops_ms = max(f32_ms, bf16_ms)
+    return {'bytes': bytes_moved, 'flops': flops, 'bf16_flops': bf16_flops,
+            'bytes_ms': bytes_ms, 'f32_ms': f32_ms, 'bf16_ms': bf16_ms,
+            'flops_ms': flops_ms,
+            'bound_ms': max(bytes_ms, flops_ms),
             'bound_by': 'bytes' if bytes_ms >= flops_ms else 'operations'}
 
 
@@ -274,16 +342,28 @@ def rel_max(a: torch.Tensor, ref: torch.Tensor) -> float:
                  ref.float().abs().max().clamp_min(1e-30))
 
 
+def phase_planes() -> torch.Tensor:
+    """The kernel phases' planes: seeded N(0, 1) bf16 (B, 3, 256, 256,
+    32), the flagship's shape."""
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    r = GEN_KWARGS['img_resolution']
+    return torch.randn((BATCH, 3, r, r, triplane_cuda.CHANNELS),
+                       generator=gen, device='cuda').to(torch.bfloat16)
+
+
 def kernel_phase() -> dict:
     """The triplane kernel against its plain version; returns its row."""
     started = time.perf_counter()
-    dev = torch.device('cuda')
-    coords = coarse_coords(dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    r = GEN_KWARGS['img_resolution']
-    planes_cl = torch.randn((BATCH, 3, r, r, triplane_cuda.CHANNELS),
-                            generator=gen, device=dev).to(torch.bfloat16)
+    return sampler_check(phase_planes(), coarse_coords(torch.device('cuda')),
+                         triplane_cuda.KERNEL, TRIPLANE_TPU_KERNEL, started)
 
+
+def sampler_check(planes_cl: torch.Tensor, coords: torch.Tensor, name: str,
+                  replaces: str, started: float) -> dict:
+    """B1 against its plain version on these planes and points, its time,
+    bound and `F.grid_sample` yardstick; emits a kernel line and returns
+    its row."""
+    r = planes_cl.shape[2]
     out = triplane_cuda.launch(planes_cl, coords)
     torch.cuda.synchronize()
     ref = triplane.sample_triplane_plain(planes_cl, coords)
@@ -325,12 +405,79 @@ def kernel_phase() -> dict:
                    out.numel() * out.element_size() +
                    texels * triplane_cuda.CHANNELS * planes_cl.element_size())
     b = bound(bytes_moved, points * 3 * 4 * triplane_cuda.CHANNELS * 2)
-    emit('kernel', started, name=triplane_cuda.KERNEL, points=points,
+    emit('kernel', started, name=name, plane_resolution=r, points=points,
          max_abs_err=max_err, mean_abs_err=mean_err, atol=KERNEL_ATOL,
          rtol=KERNEL_RTOL, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
          library_max_abs_err=library_err, touched_texels=texels, **b)
-    return row(triplane_cuda.KERNEL, TRIPLANE_SOURCE, TRIPLANE_TPU_KERNEL,
-               max_err, ms, plain_ms, library_ms, b)
+    return row(name, TRIPLANE_SOURCE, replaces, max_err, ms, plain_ms,
+               library_ms, b)
+
+
+def fused_check(planes_cl: torch.Tensor, coords: torch.Tensor,
+                gen: Generator, palette: torch.Tensor, name: str,
+                replaces: str, started: float) -> dict:
+    """B5a against its plain version on these planes and points, with the
+    generator's decoder weights and this palette: its time, bound, and the
+    port's unfused path on the same points (B1, then the decoder MLP, the
+    softmax and the palette product) as its yardstick; emits a kernel line
+    and returns its row."""
+    r = planes_cl.shape[2]
+    with torch.no_grad():
+        w0, b0, w1, b1 = gen.fused_decode_weights()
+        w0, w1 = w0.to(torch.bfloat16).contiguous(), w1.to(
+            torch.bfloat16).contiguous()
+        b0, b1 = b0.float().contiguous(), b1.float().contiguous()
+    palette = palette.to(torch.bfloat16).contiguous()
+    args = (planes_cl, coords, w0, b0, w1, b1, palette)
+    out = triplane_cuda.launch_fused(*args)
+    torch.cuda.synchronize()
+    ref = triplane.sample_triplane_fused_plain(*args)
+    err = (out.float() - ref.float()).abs()
+    max_err, scale = float(err.max()), float(ref.float().abs().max())
+    if max_err > FUSED_RTOL_OF_MAX * scale or not torch.isfinite(out).all():
+        raise AssertionError(f'{name} disagrees with its plain version: max '
+                             f'{max_err} against {FUSED_RTOL_OF_MAX} x '
+                             f'{scale}')
+    del ref, err
+
+    ms = time_cuda(lambda: triplane_cuda.launch_fused(*args), 20)
+    plain_ms = time_cuda(lambda: triplane.sample_triplane_fused_plain(*args),
+                         3, 1)
+
+    @torch.no_grad()
+    def unfused():
+        feats = triplane_cuda.launch(planes_cl, coords)
+        dec = gen.decoder.mlp(feats.to(gen.dtype))
+        probs = torch.softmax(dec['features'], dim=-1)
+        rgb = palette_rgb(probs, palette)
+        return torch.cat((dec['density_or_distance'], rgb), dim=-1)
+
+    library_ms = time_cuda(unfused, 10)
+    library_err = float((unfused().float() - out.float()).abs().max())
+
+    points = coords.shape[0] * coords.shape[1]
+    k = palette.shape[1]
+    texels = touched_texels(planes_cl, coords)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in (w0, b0, w1, b1, palette))
+    bytes_moved = (coords.numel() * 4 + out.numel() * 2 + weight_bytes +
+                   texels * triplane_cuda.CHANNELS * 2)
+    hidden = triplane_cuda.HIDDEN
+    # float32: the 12 bilinear taps of 32 channels (2 each), softplus on
+    # the hidden units (4 each), the softmax (3 per entry); bf16 products:
+    # the two layers and the palette (2 per multiply-add).
+    f32_flops = points * (3 * 4 * triplane_cuda.CHANNELS * 2 + 4 * hidden +
+                          3 * k)
+    bf16_flops = points * 2 * (triplane_cuda.CHANNELS * hidden +
+                               hidden * (1 + k) + k * 3)
+    b = bound(bytes_moved, f32_flops, bf16_flops)
+    emit('kernel', started, name=name, plane_resolution=r, points=points,
+         max_abs_err=max_err, largest=scale, rtol_of_max=FUSED_RTOL_OF_MAX,
+         ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+         library='unfused: B1 + decoder.mlp + softmax + palette_rgb',
+         library_max_abs_err=library_err, touched_texels=texels, **b)
+    return row(name, FUSED_SOURCE, replaces, max_err, ms, plain_ms,
+               library_ms, b)
 
 
 def slice_phase(rows: dict):
@@ -347,13 +494,8 @@ def slice_phase(rows: dict):
         (BATCH, GEN_KWARGS['latent_dim'])).astype(np.float32)).to(dev)
     cam, focal = camera(dev)
 
-    @torch.no_grad()
     def forward(sampler):
-        ws = gen.map(z)
-        state = gen.synthesize(ws)
-        return render(lambda pts, req: gen.sample(state, pts, req,
-                                                  sampler=sampler),
-                      RES, RES, cam, focal, SCENE_RANGE, True, SAMPLES)
+        return render_forward(gen, z, cam, focal, sampler)
 
     torch.cuda.reset_peak_memory_stats()
     triplane_cuda.launches = 0
@@ -391,11 +533,127 @@ def slice_phase(rows: dict):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     render_s = statistics.median(times)
+    fused = fused_render_check(gen, z, cam, focal, plain)
     emit('slice', started, launches=launches, rgb_max_abs_err=rgb_err,
          mask_max_abs_err=mask_err, atol=RENDER_ATOL, mask_range=mask_range,
          render_ms=render_s * 1e3, render_ms_all=[t * 1e3 for t in times],
-         rays_per_s=BATCH * RES * RES / render_s, peak_gb=peak_gb)
+         rays_per_s=BATCH * RES * RES / render_s, peak_gb=peak_gb,
+         fused=fused)
     return gen, z, cam, focal
+
+
+@torch.no_grad()
+def render_forward(gen: Generator, z, cam, focal,
+                   sampler=triplane_cuda.sample_triplane):
+    """map -> synthesize -> render at bench.py's operating point."""
+    state = gen.synthesize(gen.map(z))
+    return render(lambda pts, req: gen.sample(state, pts, req,
+                                              sampler=sampler),
+                  RES, RES, cam, focal, SCENE_RANGE, True, SAMPLES)
+
+
+def timed_renders(gen: Generator, z, cam, focal, repeats: int = 5
+                  ) -> list:
+    """ms of `repeats` renders after one warm-up, each on the host clock
+    between synchronisations."""
+    render_forward(gen, z, cam, focal)
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_forward(gen, z, cam, focal)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def fused_render_check(gen: Generator, z, cam, focal, plain) -> dict:
+    """The render with `fuse_decode` (B5a on every pass, never B1; counts
+    reset just before and read just after) against the plain render
+    `plain`, and its ms against the unfused render's in turns."""
+    fused = gen.fused_view()
+    torch.cuda.synchronize()
+    reset_counts()
+    out = render_forward(fused, z, cam, focal)
+    torch.cuda.synchronize()
+    launched = counts()
+    expect_launches('fused render', launched,
+                    **{triplane_cuda.FUSED_KERNEL: 2})
+    rgb_err = float((out.rgb - plain.rgb).abs().max())
+    mask_err = float((out.mask - plain.mask).abs().max())
+    if (rgb_err > FUSED_RENDER_ATOL or mask_err > FUSED_RENDER_ATOL or
+            not torch.isfinite(out.rgb).all()):
+        raise AssertionError(f'fused render differs from the plain render: '
+                             f'rgb {rgb_err}, mask {mask_err}')
+    unfused_ms, fused_ms = [], []
+    for _ in range(2):  # in turns: unfused, fused, unfused, fused
+        unfused_ms += timed_renders(gen, z, cam, focal, 3)
+        fused_ms += timed_renders(fused, z, cam, focal, 3)
+    return {'launches': launched, 'rgb_max_abs_err': rgb_err,
+            'mask_max_abs_err': mask_err, 'atol': FUSED_RENDER_ATOL,
+            'render_ms': statistics.median(fused_ms),
+            'render_ms_all': fused_ms,
+            'unfused_render_ms': statistics.median(unfused_ms),
+            'unfused_render_ms_all': unfused_ms}
+
+
+def fused_kernel_phase(gen: Generator, z) -> dict:
+    """B5a at the flagship coarse pass: the B1 phase's planes and points,
+    the seeded generator's decoder weights and the palette of its
+    latents; returns its row."""
+    started = time.perf_counter()
+    with torch.no_grad():
+        palette = gen.synthesize(gen.map(z)).attention_values
+    return fused_check(phase_planes(), coarse_coords(torch.device('cuda')),
+                       gen, palette, triplane_cuda.FUSED_KERNEL,
+                       FUSED_TPU_KERNEL, started)
+
+
+def r512_phase(z, cam, focal, rows: dict) -> None:
+    """The render at 512^2 planes (the JAX CLI's --plane_resolution 512),
+    where JAX's streamed window kernels B6 and B5b take over from B1 and
+    B5a: B1 and B5a against their plain versions at its coarse pass (the
+    B6 and B5b rows), then the render unfused and fused, each against the
+    plain render."""
+    started = time.perf_counter()
+    gen = Generator(dtype=torch.bfloat16, device='cuda', seed=0,
+                    **dict(GEN_KWARGS, img_resolution=R512))
+    gen.eval()
+    with torch.no_grad():
+        state = gen.synthesize(gen.map(z))
+    coords = coarse_coords(torch.device('cuda'))
+    b6 = sampler_check(state.planes_cl, coords, 'triplane_sample_r512',
+                       WINDOW_TPU_KERNEL, started)
+    b5b = fused_check(state.planes_cl, coords, gen, state.attention_values,
+                      'triplane_sample_fused_r512', WINDOW_FUSED_TPU_KERNEL,
+                      started)
+    del state, coords
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    reset_counts()
+    out = render_forward(gen, z, cam, focal)
+    torch.cuda.synchronize()
+    launched = counts()
+    expect_launches('512 render', launched, **{triplane_cuda.KERNEL: 2})
+    plain = render_forward(gen, z, cam, focal,
+                           triplane.sample_triplane_plain)
+    rgb_err = float((out.rgb - plain.rgb).abs().max())
+    mask_err = float((out.mask - plain.mask).abs().max())
+    if (rgb_err > RENDER_ATOL or mask_err > RENDER_ATOL or
+            not torch.isfinite(out.rgb).all()):
+        raise AssertionError(f'512 render with B1 differs from the plain '
+                             f'render: rgb {rgb_err}, mask {mask_err}')
+    fused = fused_render_check(gen, z, cam, focal, plain)
+    b6['launches'] = launched[triplane_cuda.KERNEL]
+    b5b['launches'] = fused['launches'][triplane_cuda.FUSED_KERNEL]
+    rows[b6['name']] = b6
+    rows[b5b['name']] = b5b
+    emit('r512', started, plane_resolution=R512, launches=launched,
+         rgb_max_abs_err=rgb_err, mask_max_abs_err=mask_err,
+         atol=RENDER_ATOL, mask_range=(float(out.mask.min()),
+                                       float(out.mask.max())),
+         fused=fused)
 
 
 def trace(fn) -> dict:
@@ -680,13 +938,25 @@ def counts() -> dict:
             triplane_cuda.GRAD_PLANES_KERNEL:
                 triplane_cuda.grad_planes_launches,
             'warp_forward': warp.launches,
-            'warp_backward': warp.grad_launches}
+            'warp_backward': warp.grad_launches,
+            triplane_cuda.FUSED_KERNEL: triplane_cuda.fused_launches}
 
 
 def reset_counts() -> None:
     triplane_cuda.launches = triplane_cuda.grad_launches = 0
-    triplane_cuda.grad_planes_launches = 0
+    triplane_cuda.grad_planes_launches = triplane_cuda.fused_launches = 0
     warp.launches = warp.grad_launches = 0
+
+
+def expect_launches(what: str, launched: dict, **want) -> None:
+    """Every count named in `want` equals it (an int) or, for True, is
+    above 0; every other count is 0."""
+    for name, count in launched.items():
+        expected = want.get(name, 0)
+        ok = count > 0 if expected is True else count == expected
+        if not ok:
+            raise AssertionError(f'{what}: launches {launched}, expected '
+                                 f'{want} and 0 for the others')
 
 
 def inversion_problem(gen: Generator):
@@ -756,14 +1026,20 @@ def inversion_stages(gen, lpips, init, target, tform, repeats: int = 3
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def inversion_phase(rows: dict):
-    started = time.perf_counter()
+def inversion_models():
+    """The inversion's full-width generator (p3d_car's box) and VGG
+    LPIPS, both from seeds."""
     gen = Generator(dtype=torch.bfloat16, device='cuda', seed=0,
                     **dict(GEN_KWARGS, scene_range=INV_CFG.scene_range))
     gen.eval()
     lpips = LPIPS(device='cuda').eval()
     convert.load_lpips_state_dicts(lpips,
                                    *convert.random_lpips_state_dicts(0))
+    return gen, lpips
+
+
+def inversion_phase(rows: dict, gen: Generator, lpips: LPIPS):
+    started = time.perf_counter()
     target, target_mask, gt_cam, init = inversion_problem(gen)
     dev = target.device
 
@@ -784,6 +1060,9 @@ def inversion_phase(rows: dict):
     if launches.pop(triplane_cuda.GRAD_PLANES_KERNEL) != 0:
         raise AssertionError('the inversion run launched the planes-only '
                              'backward B4')
+    if launches.pop(triplane_cuda.FUSED_KERNEL) != 0:
+        raise AssertionError('the inversion run launched the fused decode '
+                             'B5a')
     for name, count in launches.items():
         rows[name]['launches' if name != triplane_cuda.KERNEL else
                    'inversion_launches'] = count
@@ -1029,6 +1308,147 @@ def train_phase(rows: dict):
     return traced_g, traced_d
 
 
+def calibrate_encoder_head(encoder: BootstrapEncoder, images: torch.Tensor,
+                           foreground: float) -> None:
+    """Rescales the random encoder's coordinate outputs to COORD_SPREAD
+    about the origin and shifts its mask logit so that the share
+    `foreground` of the pixels passes PNP_MASK_CUT, from one forward on
+    `images` (see COORD_SPREAD)."""
+    with torch.no_grad():
+        coords, mask, _ = encoder(images)
+        last = encoder.post[4]
+        scale = COORD_SPREAD / coords.std(dim=(0, 1, 2))
+        last.weight[:3] *= scale[:, None, None, None]
+        last.bias[:3] = (last.bias[:3] - coords.mean(dim=(0, 1, 2))) * scale
+        logits = torch.logit(mask.double(), eps=1e-12).flatten()
+        cut = math.log(PNP_MASK_CUT / (1.0 - PNP_MASK_CUT))
+        last.bias[3] += cut - float(torch.quantile(logits, 1.0 - foreground))
+
+
+def pipeline_phase(rows: dict, gen: Generator, lpips: LPIPS) -> None:
+    """The hybrid inversion of one batch as the JAX CLI runs it
+    (nerf_from_image_tpu/cli/inversion.py): bootstrap (MiT-B5 encoder,
+    then host PnP), the initial parameters, the evaluation at step 0, 30
+    refinement steps, the evaluation at step 30, the report. Targets: a
+    second latent rendered from known p3d_car cameras (front view, with
+    its mask) and from other cameras with a bbox crop (novel views)."""
+    started = time.perf_counter()
+    dev = torch.device('cuda')
+    cfg = INV_CFG
+    rng = np.random.default_rng(9)
+    with torch.no_grad():
+        ws = gen.map(torch.from_numpy(rng.standard_normal(
+            (BATCH, GEN_KWARGS['latent_dim'])).astype(np.float32)).to(dev))
+        state = gen.synthesize(ws)
+
+        def field(pts, reqs):
+            return gen.sample(state, pts, reqs)
+
+        gt_cam, gt_focal = p3d_cameras(rng, BATCH, dev)
+        front = render(field, RES, RES, gt_cam, gt_focal, cfg.scene_range,
+                       cfg.white_background, SAMPLES)
+        perm_cam, perm_focal = p3d_cameras(rng, BATCH, dev)
+        perm_bbox = torch.tensor(PERM_BBOX, device=dev).expand(BATCH, 2, 2)
+        novel = render(field, RES, RES, perm_cam, perm_focal,
+                       cfg.scene_range, cfg.white_background, SAMPLES,
+                       bbox=perm_bbox).rgb
+        del state
+    target = torch.cat((front.rgb, front.mask[..., None]), dim=-1)
+    perm = (perm_cam, perm_focal, None, perm_bbox)
+
+    t0 = time.perf_counter()
+    encoder = BootstrapEncoder(GEN_KWARGS['latent_dim'], device=dev).eval()
+    encoder.load_state_dict({k: torch.from_numpy(v) for k, v in
+                             convert.random_encoder_state_dict(11).items()})
+    foreground = float((front.mask > 0.5).float().mean())
+    calibrate_encoder_head(encoder, target[..., :3].permute(0, 3, 1, 2),
+                           foreground)
+    encoder_params = sum(p.numel() for p in encoder.parameters())
+    z_avg = gen.average_w(torch.Generator(device=dev).manual_seed(1234))
+    focal_guesses = pnp.get_focal_guesses(rng.uniform(1.3, 1.8, 200))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    stage_ms = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stage_ms[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    reset_counts()
+    enc_out = timed('encoder forward',
+                    lambda: pipeline.bootstrap_dispatch(encoder, target))
+    expect_launches('encoder forward', counts())
+    _, mask_np, z_init, cam2world, focal, errors = timed(
+        'pnp', lambda: pipeline.bootstrap_finish(
+            enc_out, focal_guesses, z_avg, cfg.lr_gain_z))
+    fallbacks = int(np.sum(errors == pnp.DUMMY_ERROR))
+    # The dummy pose on an empty mask, as the JAX package's PnP takes it.
+    dummy = pipeline.bootstrap_finish(
+        (enc_out[0], torch.zeros_like(enc_out[1]), enc_out[2]),
+        focal_guesses, z_avg, cfg.lr_gain_z)[5]
+    if not np.all(dummy == pnp.DUMMY_ERROR):
+        raise AssertionError(f'an empty mask did not give the dummy pose: '
+                             f'{dummy}')
+    params = pipeline.init_inversion_params(z_init, cam2world, focal,
+                                            cfg.camera_flipped)
+
+    ctx = pipeline.EvalContext(gen=gen, lpips=lpips, has_mask=True)
+    report = pipeline.make_report([0, PIPELINE_STEPS])
+    launches = {}
+
+    def evaluate(step, p):
+        reset_counts()
+        timed(f'evaluation {step}', lambda: pipeline.evaluate_checkpoint(
+            ctx, cfg, p, report[step], target, None, None, gt_cam,
+            perm_cameras=perm, target_img_random=novel))
+        launches[f'evaluation {step}'] = counts()
+        expect_launches(f'evaluation {step}', counts(),
+                        **{triplane_cuda.FUSED_KERNEL: True})
+
+    evaluate(0, params)
+    reset_counts()
+    final, metrics = timed(f'{PIPELINE_STEPS} steps', lambda: (
+        inv.run_inversion(gen, lpips, params, target[..., :3], cfg,
+                          PIPELINE_STEPS,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              10), gt_cam2world=gt_cam)))
+    launches['steps'] = counts()
+    expect_launches('refinement steps', counts(),
+                    **{triplane_cuda.KERNEL: True,
+                       triplane_cuda.GRAD_KERNEL: True,
+                       'warp_forward': True, 'warp_backward': True})
+    evaluate(PIPELINE_STEPS, final)
+    report, report_text = pipeline.consolidate_report(report)
+
+    metrics = {k: v.float().cpu().tolist() for k, v in metrics.items()}
+    for key in ('loss', 'psnr', 'lpips', 'rot_error'):
+        if not all(np.isfinite(metrics[key])):
+            raise AssertionError(f'step {key} not finite: {metrics[key]}')
+    averages = {step: {k: v for k, v in entry.items() if k.endswith('_avg')}
+                for step, entry in report.items()}
+    for step, entry in report.items():
+        for key in pipeline.REPORT_SCALARS:
+            if not np.all(np.isfinite(entry[key])):
+                raise AssertionError(f'report {key} at {step} not finite: '
+                                     f'{entry[key]}')
+    rows[triplane_cuda.FUSED_KERNEL]['launches'] = launches[
+        f'evaluation {PIPELINE_STEPS}'][triplane_cuda.FUSED_KERNEL]
+    emit('pipeline', started, config=dataclasses.asdict(cfg),
+         steps=PIPELINE_STEPS, encoder_parameters=encoder_params,
+         setup_s=setup_s, stage_ms=stage_ms, launches=launches,
+         pnp_fallbacks=fallbacks, pnp_errors=errors.tolist(),
+         empty_mask_fallbacks=int(np.sum(dummy == pnp.DUMMY_ERROR)),
+         target_foreground=foreground,
+         mask_pass_share=float((mask_np > PNP_MASK_CUT).mean()),
+         step_metrics=metrics, report=averages,
+         report_text=report_text.strip().splitlines())
+
+
 def main() -> None:
     started = time.perf_counter()
     device = device_phase()
@@ -1038,7 +1458,11 @@ def main() -> None:
               triplane_grad_planes_phase(), *warp_phase()]:
         rows[r['name']] = r
     render_args = slice_phase(rows)
-    inversion_step = inversion_phase(rows)
+    rows[triplane_cuda.FUSED_KERNEL] = fused_kernel_phase(*render_args[:2])
+    r512_phase(*render_args[1:], rows)
+    inv_gen, lpips = inversion_models()
+    inversion_step = inversion_phase(rows, inv_gen, lpips)
+    pipeline_phase(rows, inv_gen, lpips)
     train_steps = train_phase(rows)
     profile_phase(*render_args, inversion_step, train_steps)
     emit('done', started)

@@ -1,10 +1,10 @@
 """Ray generation, near/far planes and stratified depths (PyTorch port of
 `nerf_from_image_tpu/core/rays.py`).
 
-The slice ports the perspective camera without a principal-point offset
-or bbox crop. Depths are evenly spaced, or jittered within their strata by
-uniform draws from a `torch.Generator` or given as a float array (the JAX
-package's injected draw).
+The port has the perspective camera, with an optional principal point
+("center") and normalized bbox crop. Depths are evenly spaced, or
+jittered within their strata by uniform draws from a `torch.Generator` or
+given as a float array (the JAX package's injected draw).
 """
 
 from __future__ import annotations
@@ -17,7 +17,9 @@ Draw = Union[torch.Generator, torch.Tensor]
 
 
 def get_ray_bundle(height: int, width: int, focal_length: torch.Tensor,
-                   cam2world: torch.Tensor
+                   cam2world: torch.Tensor,
+                   bbox: Optional[torch.Tensor] = None,
+                   center: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-pixel ray origins and directions in world space.
 
@@ -25,6 +27,8 @@ def get_ray_bundle(height: int, width: int, focal_length: torch.Tensor,
       height, width: image resolution.
       focal_length: (B,) normalized focal length (perspective camera).
       cam2world: (B, 4, 4) camera-to-world matrices.
+      bbox: optional (B, 2, 2) normalized crop [[x0, y0], [w, h]].
+      center: optional (B, 2) principal point in [0, 1].
 
     Returns:
       ray_origins, ray_directions: (B, H, W, 3) each. Directions are not
@@ -34,8 +38,19 @@ def get_ray_bundle(height: int, width: int, focal_length: torch.Tensor,
     # Pixel grids: ii[r, c] = c / W, jj[r, c] = r / H.
     ii = (torch.arange(width, dtype=dtype, device=device) / width)[None, :]
     jj = (torch.arange(height, dtype=dtype, device=device) / height)[:, None]
-    ii = ii.expand(height, width)[None] - 0.5
-    jj = jj.expand(height, width)[None] - 0.5
+    ii = ii.expand(height, width)[None]
+    jj = jj.expand(height, width)[None]
+    if center is not None:
+        ii = ii - 0.5 * (2.0 * center[:, 0, None, None] - 1.0) - 0.5
+        jj = jj - 0.5 * (2.0 * center[:, 1, None, None] - 1.0) - 0.5
+    else:
+        ii = ii - 0.5
+        jj = jj - 0.5
+    if bbox is not None:
+        ii = (bbox[:, 1:2, 0, None] * (ii + 0.5) +
+              bbox[:, 0:1, 0, None]) * 0.5
+        jj = -(bbox[:, 1:2, 1, None] * (-jj + 0.5) +
+               bbox[:, 0:1, 1, None]) * 0.5
     ii = ii / focal_length[:, None, None]
     jj = jj / focal_length[:, None, None]
 

@@ -81,9 +81,16 @@ def make_camera(params: InversionParams, camera_flipped: bool
 
 def render_from_params(gen: Generator, params: InversionParams,
                        cfg: InversionConfig,
-                       sampler: Sampler = triplane_cuda.sample_triplane
+                       sampler: Sampler = triplane_cuda.sample_triplane,
+                       center: Optional[torch.Tensor] = None,
+                       bbox: Optional[torch.Tensor] = None,
+                       render_rng: Optional[Dict[str, torch.Tensor]] = None
                        ) -> Tuple[RenderOutput, torch.Tensor, torch.Tensor]:
     """Renders the parameters' latent from their camera.
+
+    `center` (B, 2) and `bbox` (B, 2, 2) crop the camera as in `render`;
+    `render_rng` is None (deterministic depths) or the render's draws
+    {'depth', 'pdf_u'}, as the JAX package injects them.
 
     Returns (render, cam2world (B, 4, 4), focal (B,)).
     """
@@ -98,7 +105,7 @@ def render_from_params(gen: Generator, params: InversionParams,
                                               sampler=sampler),
                  cfg.resolution, cfg.resolution, cam, focal,
                  cfg.scene_range, cfg.white_background,
-                 cfg.depth_samples_per_ray)
+                 cfg.depth_samples_per_ray, render_rng, center, bbox)
     return out, cam, focal
 
 
@@ -107,7 +114,8 @@ def inversion_loss(gen: Generator, lpips: LPIPS, params: InversionParams,
                    generator: Optional[torch.Generator] = None,
                    tform: Optional[augment.AffineTransform] = None,
                    sampler: Sampler = triplane_cuda.sample_triplane,
-                   warp: Warp = warp_lib.grid_sample_zeros
+                   warp: Warp = warp_lib.grid_sample_zeros,
+                   render_rng: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The refinement loss (reference run.py:2202-2254).
 
@@ -117,6 +125,7 @@ def inversion_loss(gen: Generator, lpips: LPIPS, params: InversionParams,
       tform: the transforms of the B * num_augmentations crops (crop k of
         image b is row b * num_augmentations + k), shared by prediction
         and target.
+      render_rng: the render's injected draws, or None (deterministic).
 
     Returns (loss, monitor): the loss sums over the batch (mean LPIPS over
     images and crops, times B); monitor holds the per-image psnr, the
@@ -124,7 +133,8 @@ def inversion_loss(gen: Generator, lpips: LPIPS, params: InversionParams,
     """
     if cfg.loss_type not in LOSS_TYPES:
         raise ValueError(f'unknown loss_type {cfg.loss_type!r}')
-    out, cam, _ = render_from_params(gen, params, cfg, sampler)
+    out, cam, _ = render_from_params(gen, params, cfg, sampler,
+                                     render_rng=render_rng)
     pred = out.rgb  # (B, H, W, 3)
     target = target_img[..., :3].detach()
     b = pred.shape[0]
@@ -201,8 +211,8 @@ def make_inversion_step(gen: Generator, lpips: LPIPS, cfg: InversionConfig,
                         gt_cam2world: Optional[torch.Tensor] = None,
                         sampler: Sampler = triplane_cuda.sample_triplane,
                         warp: Warp = warp_lib.grid_sample_zeros):
-    """Returns step(params, optimizer, target, generator=None, tform=None)
-    -> metrics.
+    """Returns step(params, optimizer, target, generator=None, tform=None,
+    render_rng=None) -> metrics.
 
     A step differentiates the loss to the parameters only (the generator's
     and LPIPS' weights are constants here), zeroes the pose gradients when
@@ -217,10 +227,12 @@ def make_inversion_step(gen: Generator, lpips: LPIPS, cfg: InversionConfig,
     def step(params: InversionParams, optimizer: torch.optim.Adam,
              target: torch.Tensor,
              generator: Optional[torch.Generator] = None,
-             tform: Optional[augment.AffineTransform] = None
+             tform: Optional[augment.AffineTransform] = None,
+             render_rng: Optional[Dict[str, torch.Tensor]] = None
              ) -> Dict[str, torch.Tensor]:
         loss, monitor = inversion_loss(gen, lpips, params, target, cfg,
-                                       generator, tform, sampler, warp)
+                                       generator, tform, sampler, warp,
+                                       render_rng)
         named = params.named()
         grads = torch.autograd.grad(loss, [t for _, t in named])
         metrics = {'loss': loss.detach(), 'psnr': monitor['psnr'].mean(),
@@ -246,12 +258,16 @@ def run_inversion(gen: Generator, lpips: LPIPS,
                   cfg: InversionConfig, n_steps: int,
                   generator: Optional[torch.Generator] = None,
                   gt_cam2world: Optional[torch.Tensor] = None,
-                  tforms: Optional[Sequence[augment.AffineTransform]] = None
+                  tforms: Optional[Sequence[augment.AffineTransform]] = None,
+                  render_noise: Optional[Sequence[Dict[str,
+                                                       torch.Tensor]]] = None
                   ) -> Tuple[InversionParams, Dict[str, torch.Tensor]]:
     """`n_steps` refinement steps from `init_params` (left unchanged).
 
     The crops' transforms come from `tforms[i]` at step i when given, else
     from `generator` (None: a generator seeded 0 on the target's device).
+    Step i renders with the draws `render_noise[i]` when given, else
+    deterministically.
     Returns (the final parameters, detached; the metrics stacked per
     step, each (n_steps,)).
     """
@@ -261,7 +277,8 @@ def run_inversion(gen: Generator, lpips: LPIPS,
     if generator is None and tforms is None:
         generator = torch.Generator(device=target_img.device).manual_seed(0)
     history = [step(params, optimizer, target_img, generator,
-                    None if tforms is None else tforms[i])
+                    None if tforms is None else tforms[i],
+                    None if render_noise is None else render_noise[i])
                for i in range(n_steps)]
     metrics = {k: torch.stack([m[k] for m in history]) for k in history[0]}
     return params.copy(requires_grad=False), metrics

@@ -17,9 +17,10 @@ later slices.
 
 from __future__ import annotations
 
+import copy
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -163,6 +164,9 @@ class GeneratorState:
     planes: torch.Tensor  # (B, 3, 32, R, R), the JAX package's layout
     planes_cl: torch.Tensor  # (B, 3, R, R, 32) channel-last, for sampling
     attention_values: torch.Tensor  # (B, K, 3)
+    # With `fuse_decode`: (w0, b0, w1, b1, palette) in the fused call's
+    # types, built once per `synthesize` rather than on every pass.
+    fused_tail: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 Sampler = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -177,6 +181,12 @@ class Generator(nn.Module):
     Parameters are drawn from `torch.Generator().manual_seed(seed)` on the
     CPU, then moved to `device` (None: CUDA, raising when it is absent).
     Parameters stay float32; activations run in `dtype`.
+
+    `fuse_decode` (the JAX package's field of that name) is off;
+    `fused_view()` returns the generator with it on, which makes `sample`
+    run the triplane sample and the decoder tail as one forward-only call
+    (kernel B5a on the card); it raises when autograd would need the
+    sample's gradient.
     """
 
     def __init__(self, latent_dim: int, scene_range: float,
@@ -185,12 +195,14 @@ class Generator(nn.Module):
                  channel_max: int = 512, dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None, seed: int = 0):
         super().__init__()
+        self.fuse_decode = False
         device = resolve_device(device)
         if attention_values < 1:
             raise NotImplementedError('the port needs attention_values >= 1')
         gen = torch.Generator().manual_seed(seed)
         w_dim = 512
         self.scene_range = scene_range
+        self.latent_dim = latent_dim
         self.dtype = dtype
         self.num_ws = 15  # 14 for synthesis, the last for the palette
         self.mapping_network = nn.ModuleDict({
@@ -212,14 +224,49 @@ class Generator(nn.Module):
     def map(self, z: torch.Tensor) -> torch.Tensor:
         return self.mapping_network['backbone'](z)
 
+    def average_w(self, generator: torch.Generator,
+                  n_samples: int = 10000) -> torch.Tensor:
+        """Mean w over `n_samples` latents drawn from `generator` (on the
+        parameters' device): (1, num_ws, 512)."""
+        device = self.beta.device
+        z = torch.randn((n_samples, self.latent_dim), generator=generator,
+                        device=device)
+        return self.map(z).float().mean(dim=0, keepdim=True)
+
+    def fused_view(self) -> 'Generator':
+        """A shallow copy with `fuse_decode` on: the same parameter and
+        buffer tensors, sampled and decoded in one forward-only call."""
+        view = copy.copy(self)
+        view.fuse_decode = True
+        return view
+
+    def fused_decode_weights(self):
+        """The decoder's equalized weights as the fused call takes them:
+        (w0 (32, 64), b0 (64,), w1 (64, 1 + K), b1 (1 + K,)), input index
+        first, as `nerf_from_image_tpu/models/generator.py` builds them
+        for its fused kernel."""
+        first, second = self.decoder.net[0], self.decoder.net[2]
+        return ((first.weight * first.gain).t(),
+                first.bias * first.lr_multiplier,
+                (second.weight * second.gain).t(),
+                second.bias * second.lr_multiplier)
+
     def synthesize(self, ws: torch.Tensor) -> GeneratorState:
         att = self.texture_mapper(ws[:, 14])
         planes = self.synthesis_network(ws[:, :14])
         planes = planes.reshape(ws.shape[0], 3, PLANE_CHANNELS,
                                 planes.shape[-2], planes.shape[-1])
+        fused_tail = None
+        if self.fuse_decode:
+            w0, b0, w1, b1 = self.fused_decode_weights()
+            fused_tail = tuple(
+                t.to(dtype).contiguous() for t, dtype in (
+                    (w0, torch.bfloat16), (b0, torch.float32),
+                    (w1, torch.bfloat16), (b1, torch.float32),
+                    (att, torch.bfloat16)))
         return GeneratorState(planes=planes,
                               planes_cl=triplane.planes_channel_last(planes),
-                              attention_values=att)
+                              attention_values=att, fused_tail=fused_tail)
 
     def sdf_to_sigma(self, density_or_distance: torch.Tensor,
                      out_of_bounds_mask: torch.Tensor) -> torch.Tensor:
@@ -239,7 +286,10 @@ class Generator(nn.Module):
           sampler: the triplane sampler; the default runs the CUDA
             kernels (forward B1, backward B2) for CUDA tensors and their
             plain versions for CPU tensors, differentiable to the planes
-            and the points either way.
+            and the points either way. With `fuse_decode`,
+            `triplane_cuda.sample_triplane_fused` (B5a on the card)
+            samples and decodes on bf16 planes, as the JAX package's
+            fused kernel reads them, and another sampler raises.
 
         Returns values flattened over the non-batch dims: sigma (B, N),
         rgb (B, N, 3), and overflow_resid, a 0
@@ -253,10 +303,26 @@ class Generator(nn.Module):
         x = x_in.reshape(bs, -1, 3) / self.scene_range
         oob = (x.abs() > 1.0).any(dim=-1).to(x.dtype)
 
-        feats = sampler(state.planes_cl, x.contiguous())
-        dec = self.decoder.mlp(feats.to(self.dtype))
         outputs = {'overflow_resid': torch.zeros((), dtype=torch.int32,
                                                  device=x.device)}
+        if self.fuse_decode:
+            if sampler is not triplane_cuda.sample_triplane:
+                raise ValueError('fuse_decode samples through the fused '
+                                 'call; sample another way without it')
+            if state.fused_tail is None:
+                raise ValueError('the state was synthesized without '
+                                 'fuse_decode')
+            out4 = triplane_cuda.sample_triplane_fused(
+                state.planes_cl, x.contiguous(), *state.fused_tail)
+            if 'sigma' in requests:
+                outputs['sigma'] = self.sdf_to_sigma(
+                    out4[..., :1].to(self.dtype), oob)
+            if 'rgb' in requests:
+                outputs['rgb'] = out4[..., 1:].to(self.dtype)
+            return outputs
+
+        feats = sampler(state.planes_cl, x.contiguous())
+        dec = self.decoder.mlp(feats.to(self.dtype))
         if 'sigma' in requests:
             outputs['sigma'] = self.sdf_to_sigma(dec['density_or_distance'],
                                                  oob)

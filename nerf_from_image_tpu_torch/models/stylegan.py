@@ -287,11 +287,20 @@ class SynthesisNetwork(nn.Module):
                 generator=generator))
 
     def forward(self, ws: torch.Tensor) -> torch.Tensor:
+        """ws (B, n, w_dim) -> the feature image. A layer whose w lies past
+        the n given reads the last one, as the JAX package's clamped
+        indexing does: the generator passes 14, so at 512^2 every layer of
+        the last block reads the 14th."""
         x = img = None
         w_idx = 0
         for res in self.resolutions:
             block = getattr(self, f'b{res}')
-            x, img = block(x, img, ws[:, w_idx:w_idx + block.num_conv + 1])
+            block_ws = ws[:, w_idx:w_idx + block.num_conv + 1]
+            short = block.num_conv + 1 - block_ws.shape[1]
+            if short > 0:
+                block_ws = torch.cat(
+                    (block_ws, ws[:, -1:].expand(-1, short, -1)), dim=1)
+            x, img = block(x, img, block_ws)
             w_idx += block.num_conv
         return img
 

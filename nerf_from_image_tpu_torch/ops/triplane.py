@@ -1,6 +1,6 @@
-"""Plain PyTorch triplane sampler and its backward (the functions of TPU
-kernels B1, B2 and B4), and a gather sampler that autograd differentiates
-to any order.
+"""Plain PyTorch triplane sampler, its backward and the sampler fused with
+the decoder tail (the functions of TPU kernels B1, B2, B4 and B5a), and a
+gather sampler that autograd differentiates to any order.
 
 Counterpart of `nerf_from_image_tpu/ops/triplane.py`: for points at
 normalized [-1, 1] coordinates, the mean over the xy, xz and yz planes of
@@ -12,9 +12,10 @@ The port keeps the planes channel-last, (B, 3, R, R, C), so that a 2x2 tap
 is four contiguous C-vectors. This module holds the plain versions of the CUDA
 kernels in `ops/csrc/triplane_sample.cu` (forward),
 `ops/csrc/triplane_sample_grad.cu` (backward to the planes and the
-coordinates) and `ops/csrc/triplane_sample_grad_planes.cu` (backward to
-the planes only): the CPU path of `ops.triplane_cuda.sample_triplane`, and
-what those kernels are held against on the card. The forward gathers
+coordinates), `ops/csrc/triplane_sample_grad_planes.cu` (backward to
+the planes only) and `ops/csrc/triplane_sample_fused.cu` (forward fused
+with the decoder tail): the CPU path of the wrappers in
+`ops.triplane_cuda`, and what those kernels are held against on the card. The forward gathers
 texels with `index_select` and sums the 12 taps in float32; the backward
 is written out explicitly (scatter with `index_add_`) rather than left to
 autograd, which would keep the (B, N, 12, C) float32 taps of a whole pass
@@ -31,6 +32,7 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 # (column coordinate, row coordinate) of planes xy, xz, yz.
 PLANE_AXES = ((0, 1), (0, 2), (1, 2))
@@ -213,6 +215,49 @@ def sample_triplane_grad_planes_plain(plane_shape: Sequence[int],
                               (weights[..., None] *
                                g[:, :, None, :]).reshape(-1, c))
     return dtable.reshape(tuple(plane_shape))
+
+
+def sample_triplane_fused_plain(planes_cl: torch.Tensor,
+                                coords: torch.Tensor, w0: torch.Tensor,
+                                b0: torch.Tensor, w1: torch.Tensor,
+                                b1: torch.Tensor,
+                                palette: torch.Tensor) -> torch.Tensor:
+    """The sampler fused with the decoder tail, in chunks of points.
+
+    The function of the JAX package's `_resident_kernel_fused` with
+    `_decode_tail` (nerf_from_image_tpu/ops/pallas/triplane_window.py),
+    with its roundings: the features, the hidden units and the palette
+    probabilities are rounded to bf16 before each product, the products
+    are summed in float32, and the output is rounded to bf16.
+
+    Args:
+      planes_cl: (B, 3, R, R, 32) channel-last planes.
+      coords: (B, N, 3) float32 coordinates.
+      w0, b0: (32, H) bf16 and (H,) float32, the first layer (input index
+        first).
+      w1, b1: (H, 1 + K) bf16 and (1 + K,) float32, the second layer.
+      palette: (B, K, 3) bf16 palette of each image.
+
+    Returns:
+      (B, N, 4) bf16: [sdf distance | rgb].
+    """
+    b, n = coords.shape[:2]
+    out = torch.empty((b, n, 4), dtype=torch.bfloat16, device=coords.device)
+    w0, w1, palette = (t.to(torch.bfloat16).float()
+                       for t in (w0, w1, palette))
+    b0, b1 = b0.float(), b1.float()
+    for start in range(0, n, CHUNK_POINTS):
+        feats = sample_triplane_plain(
+            planes_cl, coords[:, start:start + CHUNK_POINTS])
+        h = feats.to(torch.bfloat16).float() @ w0 + b0
+        # jax.nn.softplus: max(x, 0) + log1p(exp(-|x|)).
+        h = h.clamp_min(0.0) + torch.log1p(torch.exp(-h.abs()))
+        d = h.to(torch.bfloat16).float() @ w1 + b1
+        probs = F.softmax(d[..., 1:], dim=-1).to(torch.bfloat16).float()
+        rgb = torch.bmm(probs, palette)
+        out[:, start:start + CHUNK_POINTS] = torch.cat(
+            (d[..., :1], rgb), dim=-1).to(torch.bfloat16)
+    return out
 
 
 def _gather_weights(g: torch.Tensor, r: int):

@@ -13,8 +13,16 @@ runs them through one `autograd.Function` (`ops.triplane.TriplaneSample`):
 for tensors that lie on the CPU it takes the plain versions
 (`ops/triplane.py`); for CUDA tensors it launches the kernels or raises.
 
-`launches`, `grad_launches` and `grad_planes_launches` count kernel
-launches, so a run can show that its path went through the kernels.
+The fused kernel (`csrc/triplane_sample_fused.cu`) replaces TPU kernels
+B5a, `_resident_kernel_fused` with `_decode_tail`, and B5b,
+`_window_kernel_fused` (the same function for planes too large for the
+TPU's VMEM): the sampler followed by the decoder MLP, the palette softmax
+and the palette product, forward only. `sample_triplane_fused` takes its
+plain version for CPU tensors and launches it for CUDA tensors.
+
+`launches`, `grad_launches`, `grad_planes_launches` and `fused_launches`
+count kernel launches, so a run can show that its path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -30,11 +38,20 @@ from nerf_from_image_tpu_torch.ops import triplane
 KERNEL = 'triplane_sample'
 GRAD_KERNEL = 'triplane_sample_grad'
 GRAD_PLANES_KERNEL = 'triplane_sample_grad_planes'
+FUSED_KERNEL = 'triplane_sample_fused'
 CHANNELS = 32
+HIDDEN = 64  # the decoder's hidden units
+# Palette entries the fused kernel is built for: every reference dataset's.
+FUSED_VALUES = 10
+# Grid cap of the fused kernel: 16 blocks of 8 warps for each of the
+# H100's 132 SMs; each warp then walks over many tiles of points, so the
+# weights are staged in shared memory once per block.
+FUSED_MAX_BLOCKS = 132 * 16
 
 launches = 0
 grad_launches = 0
 grad_planes_launches = 0
+fused_launches = 0
 
 
 def _function():
@@ -58,6 +75,15 @@ def _grad_planes_function():
     fn = cuda_build.load_library(
         GRAD_PLANES_KERNEL).triplane_sample_grad_planes_bf16
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _fused_function():
+    fn = cuda_build.load_library(FUSED_KERNEL).triplane_sample_fused_bf16
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64, ctypes.c_int64,
+                                           ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -218,3 +244,91 @@ def sample_triplane(planes_cl: torch.Tensor,
         return triplane.plain_sampler(planes_cl, coords)
     return triplane.TriplaneSample.apply(planes_cl, coords, launch,
                                          launch_grad, launch_grad_planes)
+
+
+def _check_decode(planes_cl: torch.Tensor, w0: torch.Tensor,
+                  b0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                  palette: torch.Tensor) -> int:
+    """Checks the decoder tail's shapes and devices; returns K (>= 1)."""
+    b = planes_cl.shape[0]
+    k = palette.shape[1] if palette.ndim == 3 else -1
+    shapes = ((w0, (CHANNELS, HIDDEN)), (b0, (HIDDEN,)),
+              (w1, (HIDDEN, 1 + k)), (b1, (1 + k,)), (palette, (b, k, 3)))
+    for t, shape in shapes:
+        if tuple(t.shape) != shape or t.device != planes_cl.device:
+            raise ValueError(f'decoder tail: expected {shape} on '
+                             f'{planes_cl.device}, got {tuple(t.shape)} on '
+                             f'{t.device}')
+    if k < 1:
+        raise ValueError(f'the fused decode needs palette entries, got {k}')
+    return k
+
+
+def launch_fused(planes_cl: torch.Tensor, coords: torch.Tensor,
+                 w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
+                 b1: torch.Tensor, palette: torch.Tensor) -> torch.Tensor:
+    """Runs the fused kernel: planes (B, 3, R, R, 32) bf16, coords (B, N, 3)
+    f32, w0 (32, 64) bf16, b0 (64,) f32, w1 (64, 11) bf16, b1 (11,) f32,
+    palette (B, 10, 3) bf16, all contiguous on the card -> (B, N, 4) bf16,
+    [sdf distance | rgb]. The decoder tail's shapes are checked by
+    `sample_triplane_fused`, not here."""
+    global fused_launches
+    k = palette.shape[1]
+    if k != FUSED_VALUES:
+        raise ValueError(f'the fused kernel is built for {FUSED_VALUES} '
+                         f'palette entries, got {k}')
+    _check_kernel_inputs(planes_cl, coords)
+    for t, dtype in ((w0, torch.bfloat16), (b0, torch.float32),
+                     (w1, torch.bfloat16), (b1, torch.float32),
+                     (palette, torch.bfloat16)):
+        if t.dtype != dtype or not t.is_contiguous():
+            raise TypeError(f'decoder tail: expected contiguous {dtype}, got '
+                            f'{t.dtype}')
+    b, _, r, _, _ = planes_cl.shape
+    n = coords.shape[1]
+    out = torch.empty((b, n, 4), dtype=torch.bfloat16,
+                      device=planes_cl.device)
+    if out.numel() == 0:
+        return out
+    fn = _fused_function()
+    with torch.cuda.device(planes_cl.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(planes_cl.data_ptr(), coords.data_ptr(), w0.data_ptr(),
+                 b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                 palette.data_ptr(), out.data_ptr(), b, n, r, k,
+                 FUSED_MAX_BLOCKS, stream)
+    if err != 0:
+        raise RuntimeError(f'{FUSED_KERNEL} launch failed: cudaError {err}')
+    fused_launches += 1
+    return out
+
+
+def sample_triplane_fused(planes_cl: torch.Tensor, coords: torch.Tensor,
+                          w0: torch.Tensor, b0: torch.Tensor,
+                          w1: torch.Tensor, b1: torch.Tensor,
+                          palette: torch.Tensor) -> torch.Tensor:
+    """The sampler fused with the decoder tail, forward only: (B, N, 4)
+    bf16, [sdf distance | rgb] (see `triplane.sample_triplane_fused_plain`
+    for the function and its roundings).
+
+    The inputs are cast to the kernel's types (bf16 planes, weights and
+    palette; float32 biases). For CPU tensors it takes the plain version
+    (any K); for CUDA tensors it launches the kernel (K = 10) or raises.
+    It has no backward, as the JAX package's fused call has none: it
+    raises when autograd would need one.
+    """
+    _check(planes_cl, coords)
+    _check_decode(planes_cl, w0, b0, w1, b1, palette)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (planes_cl, coords, w0, b0, w1, b1,
+                                      palette)):
+        raise RuntimeError('the fused decode has no backward: run it under '
+                           'torch.no_grad(), or sample without fuse_decode')
+    planes_cl = planes_cl.to(torch.bfloat16).contiguous()
+    w0, w1, palette = (t.to(torch.bfloat16).contiguous()
+                       for t in (w0, w1, palette))
+    b0, b1 = (t.to(torch.float32).contiguous() for t in (b0, b1))
+    if planes_cl.device.type == 'cpu':
+        return triplane.sample_triplane_fused_plain(planes_cl, coords, w0, b0,
+                                                    w1, b1, palette)
+    return launch_fused(planes_cl, coords, w0, b0, w1, b1, palette)

@@ -2,9 +2,10 @@
 composite (PyTorch port of `nerf_from_image_tpu/render/renderer.py`).
 
 The field is `sample_fn(points, requests) -> dict`, as in the JAX package.
-The port renders sigma and rgb with a perspective camera, deterministically
-or with jittered depths and random PDF draws; normals, semantics,
-coordinates, bbox and principal-point crops wait for later slices. The render differentiates to the field
+The port renders sigma and rgb with a perspective camera (with an optional
+principal point and bbox crop), deterministically or with jittered depths
+and random PDF draws; normals, semantics and coordinates wait for later
+slices. The render differentiates to the field
 and to the camera, as JAX's does: near/far, the coarse weights and the
 fine depths are detached, and the points of both passes carry the
 camera's gradient through the rays.
@@ -46,8 +47,9 @@ def render(sample_fn: SampleFn, height: int, width: int,
            scene_range: float, white_background: bool,
            depth_samples_per_ray: int,
            rng: Optional[Union[torch.Generator,
-                               Dict[str, torch.Tensor]]] = None
-           ) -> RenderOutput:
+                               Dict[str, torch.Tensor]]] = None,
+           center: Optional[torch.Tensor] = None,
+           bbox: Optional[torch.Tensor] = None) -> RenderOutput:
     """Renders a batch of views.
 
     Args:
@@ -58,11 +60,13 @@ def render(sample_fn: SampleFn, height: int, width: int,
         jittered coarse depths and random PDF draws (drawn in that order);
         or those draws themselves, {'depth': uniform (B, H, W, S),
         'pdf_u': uniform (B * H * W, S)}, as the JAX package injects them.
+      center: optional (B, 2) principal point in [0, 1].
+      bbox: optional (B, 2, 2) normalized crop [[x0, y0], [w, h]].
     """
     b = cam2world.shape[0]
     s = depth_samples_per_ray
     ray_origins, ray_directions = rays_lib.get_ray_bundle(
-        height, width, focal_length, cam2world)
+        height, width, focal_length, cam2world, bbox, center)
     ray_directions = normalize(ray_directions)
     near, far = rays_lib.compute_near_far_planes(ray_origins,
                                                  ray_directions, scene_range)

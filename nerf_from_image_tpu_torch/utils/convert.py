@@ -11,8 +11,10 @@ state dict, and `from_jax_discriminator` does the same for a JAX
 state dict from a seed. The LPIPS leg builds reference-format LPIPS
 weights from a seed (`random_lpips_state_dicts`) and loads reference LPIPS
 weights into the port (`load_lpips_state_dicts`): the same two dicts that
-the JAX package's `convert_lpips` takes. This module holds numpy only and
-imports no JAX.
+the JAX package's `convert_lpips` takes. `random_encoder_state_dict` draws
+a reference-format bootstrap encoder state dict from a seed, for
+`BootstrapEncoder.load_state_dict` here and `convert_bootstrap_encoder`
+in the JAX package. This module holds numpy only and imports no JAX.
 """
 
 from __future__ import annotations
@@ -193,3 +195,33 @@ def load_lpips_state_dicts(model: nn.Module,
         if key.startswith(('features.', 'lin')):
             tensors[key] = torch.tensor(np.asarray(value, np.float32))
     model.load_state_dict(tensors, strict=True)
+
+
+def random_encoder_state_dict(seed: int, latent_dim: int = 512,
+                              **sizes) -> Dict[str, np.ndarray]:
+    """Reference-format `BootstrapEncoder` weights drawn from `seed`.
+
+    `sizes` are `BootstrapEncoder`'s options (`separate_backbones`,
+    `depths`, `embed_dims`, `num_heads`, `sr_ratios`, `head_width`);
+    the defaults give MiT-B5. Convolutions are He-normal over their fan
+    in, linear layers normal with std 1 / sqrt(fan in), LayerNorm scales
+    1 + N(0, 0.1^2) and every bias N(0, 0.02^2), so that each key carries
+    distinct values.
+    """
+    from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
+    shapes = {k: tuple(v.shape) for k, v in BootstrapEncoder(
+        latent_dim, device='meta', **sizes).state_dict().items()}
+    rng = np.random.default_rng(seed)
+    sd: Dict[str, np.ndarray] = {}
+    for key, shape in shapes.items():
+        draw = rng.standard_normal(shape)
+        if key.endswith('.bias'):
+            draw = draw * 0.02
+        elif len(shape) == 1:  # LayerNorm scale
+            draw = 1.0 + 0.1 * draw
+        elif len(shape) == 4:  # convolution (out, in / groups, kh, kw)
+            draw = draw * np.sqrt(2.0 / np.prod(shape[1:]))
+        else:  # linear (out, in)
+            draw = draw / np.sqrt(shape[1])
+        sd[key] = draw.astype(np.float32)
+    return sd
