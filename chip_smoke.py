@@ -34,7 +34,11 @@ Phases, each printed as one JSON line:
              C++ compiler builds the PnP solver
   kernel     each kernel (B1, B2, B4, B3 forward, B3 backward, B5a) against
              its plain PyTorch version at the shapes its path gives it; its
-             time, bound and library yardstick
+             time, bound and library yardstick; B2 also on one inversion
+             geometry, a pile-up of clamped points, tile boundaries, a
+             ragged N and 512^2 planes, and B3's forward on crops outside
+             the image at an odd size; for B2 and B3's forward, device
+             time (profiler) beside the time a call takes
   model      the full-width generator is built
   slice      map -> synthesize -> render through the kernels (launch counts
              reset just before and read just after), output checks, the same
@@ -241,6 +245,33 @@ def time_cuda(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, iters: int = 10) -> dict:
+    """Device-only ms of one call of `fn`, two ways: the summed duration of
+    every kernel and memset that `iters` calls ran, from a torch.profiler
+    trace ('trace'); and CUDA events around 100 back-to-back calls, over
+    100 ('back_to_back'), which equals the device time only where the host
+    enqueues faster than the device runs."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    traced = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(100):
+        fn()
+    end.record()
+    end.synchronize()
+    return {'trace': traced / 1e3 / iters if traced > 0 else None,
+            'back_to_back': start.elapsed_time(end) / 100}
+
+
 def camera(device: torch.device):
     cam = torch.eye(4, device=device).repeat(BATCH, 1, 1)
     cam[:, 2, 3] = CAM_DIST
@@ -248,15 +279,25 @@ def camera(device: torch.device):
     return cam, focal
 
 
-def coarse_coords(device: torch.device) -> torch.Tensor:
-    """Normalized points of one flagship coarse pass, (B, N, 3) float32."""
-    cam, focal = camera(device)
+def coarse_coords(device: torch.device, cam=None, focal=None,
+                  scene_range: float = SCENE_RANGE) -> torch.Tensor:
+    """Normalized points of one coarse pass, (B, N, 3) float32: bench.py's
+    camera unless `cam` and `focal` are given."""
+    if cam is None:
+        cam, focal = camera(device)
     origins, dirs = rays_lib.get_ray_bundle(RES, RES, focal, cam)
     dirs = normalize(dirs)
-    near, far = rays_lib.compute_near_far_planes(origins, dirs, SCENE_RANGE)
+    near, far = rays_lib.compute_near_far_planes(origins, dirs, scene_range)
     points, _ = rays_lib.compute_query_points_from_rays(origins, dirs, near,
                                                         far, SAMPLES)
-    return (points.reshape(BATCH, -1, 3) / SCENE_RANGE).contiguous()
+    return (points.reshape(cam.shape[0], -1, 3) / scene_range).contiguous()
+
+
+def inversion_coords(device: torch.device) -> torch.Tensor:
+    """The coarse pass of one inversion geometry: p3d_car's box (1.4),
+    cameras at random azimuths (`p3d_cameras`)."""
+    cam, focal = p3d_cameras(np.random.default_rng(12), BATCH, device)
+    return coarse_coords(device, cam, focal, INV_CFG.scene_range)
 
 
 def touched_texels(planes_cl: torch.Tensor, coords: torch.Tensor) -> int:
@@ -714,9 +755,92 @@ def profile_phase(gen, z, cam, focal, inversion_step, train_steps) -> None:
          d_step=trace(d_step))
 
 
+def grad_case(what: str, planes_cl: torch.Tensor, coords: torch.Tensor,
+              grad_out: torch.Tensor) -> dict:
+    """B2 against its plain version (on float32 copies of the same bf16
+    texels, so that both give float32 sums) at GRAD_RTOL of the largest
+    value; returns the errors."""
+    dplanes, dcoords = triplane_cuda.launch_grad_raw(planes_cl, coords,
+                                                     grad_out)
+    torch.cuda.synchronize()
+    ref_planes, ref_coords = triplane.sample_triplane_grad_plain(
+        planes_cl.float(), coords, grad_out)
+    err_planes = rel_max(dplanes, ref_planes)
+    err_coords = rel_max(dcoords, ref_coords)
+    max_err = max(float((dplanes - ref_planes).abs().max()),
+                  float((dcoords - ref_coords).abs().max()))
+    if (err_planes > GRAD_RTOL or err_coords > GRAD_RTOL or
+            not torch.isfinite(dplanes).all() or
+            not torch.isfinite(dcoords).all()):
+        raise AssertionError(f'triplane grad kernel disagrees with its plain '
+                             f'version ({what}): dplanes {err_planes}, '
+                             f'dcoords {err_coords} (relative to the '
+                             f'largest)')
+    return {'points': coords.shape[0] * coords.shape[1],
+            'plane_resolution': planes_cl.shape[2],
+            'dplanes_rel_err': err_planes, 'dcoords_rel_err': err_coords,
+            'max_abs_err': max_err}
+
+
+def grad_cases(gen: torch.Generator) -> dict:
+    """B2's further cases, each against its plain version, with the
+    per-call and device times of the ones the inversion and its worst
+    case give: the coarse pass of one inversion geometry; a pile-up of
+    points clamped outside the box; points exactly on 16-texel tile
+    boundaries and on the last texel; a ragged N; and 512^2 planes."""
+    dev = torch.device('cuda')
+    c = triplane_cuda.CHANNELS
+
+    def inputs(coords, r=GEN_KWARGS['img_resolution']):
+        b, n = coords.shape[:2]
+        planes = torch.randn((b, 3, r, r, c), generator=gen,
+                             device=dev).to(torch.bfloat16)
+        grad = torch.randn((b, n, c), generator=gen,
+                           device=dev).to(torch.bfloat16)
+        return planes, coords.contiguous(), grad
+
+    def timed(args):
+        fn = lambda: triplane_cuda.launch_grad_raw(*args)  # noqa: E731
+        return {'ms': time_cuda(fn, 10), 'device_ms': device_ms(fn)}
+
+    r = GEN_KWARGS['img_resolution']
+    # 90% of the points outside the box on every axis they leave it on,
+    # from 1 to 3 box half-widths out, so they clamp onto the border
+    # texels and the corners; the rest inside.
+    n_pile = 1 << 20
+    u = torch.rand((BATCH, n_pile, 3), generator=gen, device=dev)
+    sign = torch.where(torch.rand((BATCH, n_pile, 3), generator=gen,
+                                  device=dev) < 0.5, -1.0, 1.0)
+    inside = torch.rand((BATCH, n_pile, 1), generator=gen, device=dev) < 0.1
+    pile = torch.where(inside, u * 2.0 - 1.0, sign * (1.0 + 2.0 * u))
+    # Every combination of tile boundaries 16k / (R - 1), the last texel
+    # (1.0) and the first (-1.0) over the three coordinates.
+    ticks = torch.tensor([-1.0 + 2.0 * 16 * k / (r - 1)
+                          for k in range(r // 16)] + [1.0], device=dev)
+    grid = torch.stack(torch.meshgrid(ticks, ticks, ticks, indexing='ij'),
+                       dim=-1).reshape(1, -1, 3)
+    boundaries = grid.expand(2, -1, -1)
+    ragged = torch.rand((BATCH, 100003, 3), generator=gen,
+                        device=dev) * 2.4 - 1.2
+
+    cases = {}
+    args = inputs(inversion_coords(dev))
+    cases['inversion geometry'] = {**grad_case('inversion geometry', *args),
+                                   **timed(args)}
+    args = inputs(pile)
+    cases['pile-up'] = {**grad_case('pile-up', *args), **timed(args)}
+    del args
+    cases['tile boundaries'] = grad_case('tile boundaries',
+                                         *inputs(boundaries))
+    cases['ragged N'] = grad_case('ragged N', *inputs(ragged))
+    args = inputs(coarse_coords(dev), R512)
+    cases['512 planes'] = {**grad_case('512 planes', *args), **timed(args)}
+    return cases
+
+
 def triplane_grad_phase() -> dict:
     """B2 against its plain version on the points of one flagship coarse
-    pass; returns its row."""
+    pass, then on the further cases of `grad_cases`; returns its row."""
     started = time.perf_counter()
     dev = torch.device('cuda')
     coords = coarse_coords(dev)
@@ -728,27 +852,15 @@ def triplane_grad_phase() -> dict:
     grad_out = torch.randn((BATCH, coords.shape[1], c), generator=gen,
                            device=dev).to(torch.bfloat16)
 
-    dplanes, dcoords = triplane_cuda.launch_grad_raw(planes_cl, coords,
-                                                     grad_out)
-    torch.cuda.synchronize()
-    # The plain version on float32 copies of the same texels, so that both
-    # give float32 sums.
-    ref_planes, ref_coords = triplane.sample_triplane_grad_plain(
-        planes_cl.float(), coords, grad_out)
-    err_planes = rel_max(dplanes, ref_planes)
-    err_coords = rel_max(dcoords, ref_coords)
-    max_err = max(float((dplanes - ref_planes).abs().max()),
-                  float((dcoords - ref_coords).abs().max()))
-    if (err_planes > GRAD_RTOL or err_coords > GRAD_RTOL or
-            not torch.isfinite(dplanes).all() or
-            not torch.isfinite(dcoords).all()):
-        raise AssertionError(f'triplane grad kernel disagrees with its plain '
-                             f'version: dplanes {err_planes}, dcoords '
-                             f'{err_coords} (relative to the largest)')
-    del ref_planes, ref_coords
+    bench = grad_case('coarse pass', planes_cl, coords, grad_out)
+    err_planes, err_coords = bench['dplanes_rel_err'], bench['dcoords_rel_err']
+    max_err = bench['max_abs_err']
 
-    ms = time_cuda(lambda: triplane_cuda.launch_grad_raw(planes_cl, coords,
-                                                         grad_out), 10)
+    def call():
+        return triplane_cuda.launch_grad_raw(planes_cl, coords, grad_out)
+
+    ms = time_cuda(call, 10)
+    dev_ms = device_ms(call)
     plain_ms = time_cuda(lambda: triplane.sample_triplane_grad_plain(
         planes_cl, coords, grad_out), 3, 1)
 
@@ -765,23 +877,33 @@ def triplane_grad_phase() -> dict:
                           padding_mode='border', align_corners=True)
     feats = feats.reshape(BATCH, 3, c, n).mean(dim=1)
     cotangent = grad_out.float().transpose(1, 2)
-    library_ms = time_cuda(lambda: torch.autograd.grad(
-        feats, (planes_cf, grid), cotangent, retain_graph=True), 5)
+
+    def library():
+        return torch.autograd.grad(feats, (planes_cf, grid), cotangent,
+                                   retain_graph=True)
+
+    library_ms = time_cuda(library, 5)
+    library_device_ms = device_ms(library, 3)
     del feats, planes_cf, grid, cotangent
 
     points = BATCH * n
     texels = touched_texels(planes_cl, coords)
+    dplanes_bytes = planes_cl.numel() * 4
     bytes_moved = (coords.numel() * 4 + grad_out.numel() * 2 +
-                   texels * c * 2 + dplanes.numel() * 4 + dcoords.numel() * 4)
+                   texels * c * 2 + dplanes_bytes + coords.numel() * 4)
     # Per point, plane and channel: 4 weighted cotangents added (8), two
     # tap differences blended and scaled per axis (10), times g and summed
     # (4).
     flops = points * 3 * c * 22
     b = bound(bytes_moved, flops)
+    del planes_cl, coords, grad_out
+    cases = grad_cases(gen)
     emit('kernel', started, name=triplane_cuda.GRAD_KERNEL, points=points,
          dplanes_rel_err=err_planes, dcoords_rel_err=err_coords,
-         max_abs_err=max_err, rtol=GRAD_RTOL, ms=ms, plain_ms=plain_ms,
-         library_ms=library_ms, touched_texels=texels, **b)
+         max_abs_err=max_err, rtol=GRAD_RTOL, ms=ms, device_ms=dev_ms,
+         plain_ms=plain_ms, library_ms=library_ms,
+         library_device_ms=library_device_ms, touched_texels=texels,
+         chunk=triplane_cuda.GRAD_CHUNK, cases=cases, **b)
     return row(triplane_cuda.GRAD_KERNEL, GRAD_SOURCE, GRAD_TPU_KERNEL,
                max_err, ms, plain_ms, library_ms, b)
 
@@ -857,6 +979,40 @@ def triplane_grad_planes_phase() -> dict:
                GRAD_PLANES_TPU_KERNEL, max_err, ms, plain_ms, library_ms, b)
 
 
+def warp_cases(gen: torch.Generator) -> dict:
+    """B3 forward against its plain version at WARP_ATOL on crops that
+    reach far outside the image (zeros padding), at the inversion's 128^2
+    and at 127^2, whose pixel count is not a multiple of 4 (the kernel's
+    one-pixel-at-a-time path)."""
+    dev = torch.device('cuda')
+    n_aug = INV_CFG.num_augmentations
+    images = torch.rand((BATCH, 3, RES, RES), generator=gen,
+                        device=dev) * 2.0 - 1.0
+    count = BATCH * n_aug
+    tform = augment.AffineTransform(
+        rot=(torch.rand(count, generator=gen, device=dev) * 2 - 1) * math.pi,
+        scale=torch.exp2((torch.rand(count, generator=gen, device=dev) * 2 -
+                          1)),
+        translation=(torch.rand((count, 2), generator=gen, device=dev) * 2 -
+                     1) * 1.5)
+    cases = {}
+    for size in (RES, RES - 1):
+        grid = augment.image_warp_grid(tform, size, size).reshape(
+            BATCH, n_aug, size, size, 2).contiguous()
+        out = warp.launch(images, grid)
+        torch.cuda.synchronize()
+        ref = warp.warp_plain(images, grid)
+        err = float((out - ref).abs().max())
+        if err > WARP_ATOL or not torch.isfinite(out).all():
+            raise AssertionError(f'warp forward disagrees with its plain '
+                                 f'version on crops outside the image at '
+                                 f'{size}^2: {err}')
+        cases[f'outside {size}'] = {'max_abs_err': err,
+                                    'zero_share': float((ref == 0).float()
+                                                        .mean())}
+    return cases
+
+
 def warp_phase() -> list:
     """B3 forward and backward against their plain versions at the
     inversion's shapes: 8 images of 3 x 128^2 into 15 crops each. Returns
@@ -889,6 +1045,7 @@ def warp_phase() -> list:
                              f'{bwd_rel} (relative to the largest)')
 
     ms = time_cuda(lambda: warp.launch(images, grid), 20)
+    dev_ms = device_ms(lambda: warp.launch(images, grid), 20)
     grad_ms = time_cuda(lambda: warp.launch_grad(grad_out, grid,
                                                  images.shape), 20)
     plain_ms = time_cuda(lambda: warp.warp_plain(images, grid), 10)
@@ -905,6 +1062,7 @@ def warp_phase() -> list:
                              padding_mode='zeros', align_corners=False)
 
     library_ms = time_cuda(library, 20)
+    library_device_ms = device_ms(library, 20)
     lib_out = library()
     lib_cot = grad_out.reshape(BATCH * n_aug, 3, RES, RES)
     library_grad_ms = time_cuda(lambda: torch.autograd.grad(
@@ -919,9 +1077,11 @@ def warp_phase() -> list:
     flops = pixels * (20 + 3 * 8)
     fwd_b = bound(img_bytes + grid_bytes + crop_bytes, flops)
     bwd_b = bound(crop_bytes + grid_bytes + img_bytes, flops)
+    cases = warp_cases(gen)
     emit('kernel', started, name='warp_forward', pixels=pixels,
-         max_abs_err=fwd_err, atol=WARP_ATOL, ms=ms, plain_ms=plain_ms,
-         library_ms=library_ms, **fwd_b)
+         max_abs_err=fwd_err, atol=WARP_ATOL, ms=ms, device_ms=dev_ms,
+         plain_ms=plain_ms, library_ms=library_ms,
+         library_device_ms=library_device_ms, cases=cases, **fwd_b)
     emit('kernel', started, name='warp_backward', pixels=pixels,
          max_abs_err=bwd_err, rel_err=bwd_rel, rtol=WARP_GRAD_RTOL,
          ms=grad_ms, plain_ms=plain_grad_ms, library_ms=library_grad_ms,

@@ -15,12 +15,23 @@
 // backward takes grad_out of the output's shape and adds into
 // dimages (B, C, H, W) float32, zeroed by the caller.
 //
-// Design. One thread per output pixel, looping over the channels: the
-// four tap offsets and weights are computed once per pixel, output rows
-// are coalesced, and the taps come from L2 (an image is 196 KB at
-// 3 x 128^2). The backward scatters with float32 atomicAdd, since crops
-// overlap in the image; the order of the adds, and so the last bits of
-// the sums, changes from run to run.
+// Design of the forward. The first design (one thread per output pixel
+// in a 1-D grid over all crops, two 64-bit divisions per thread) took
+// 0.063-0.077 ms a call at the inversion's shapes (NVIDIA H100 80GB HBM3,
+// 700 W), slower than F.grid_sample's 0.059 ms, against a 12 us bound.
+// Now a 2-D grid, blockIdx.y the crop, so a thread finds its image with
+// one 32-bit division of a block index; 32-bit offsets (the wrapper raises
+// for any size from 2^31 up); and each warp an 8 x 4 patch of pixels
+// rather than 32 pixels of a row, so that a warp's gathers, which follow
+// the crop's rotation through the image, touch fewer cache lines. Tried
+// on the card and slower: 4 or 8 pixels a thread (as a row of 4 read with
+// float4 grid loads and written with 16-byte stores, or down a column).
+//
+// Backward. One thread per output pixel, looping over the channels: the
+// four tap offsets and weights are computed once per pixel, and the
+// backward scatters with float32 atomicAdd, since crops overlap in the
+// image; the order of the adds, and so the last bits of the sums, changes
+// from run to run.
 //
 // Bound on this card. At the inversion's 8 images of 3 x 128^2 into 15
 // crops the forward reads 1.6 MB of images and 15.7 MB of grid and writes
@@ -35,9 +46,14 @@
 namespace {
 
 constexpr int kThreads = 256;
+// The forward's block: 4 warps, each an 8 x 4 patch of output pixels, one
+// pixel a lane, side by side: a 32 x 4 patch of one crop.
+constexpr int kForwardThreads = 128;
+constexpr int kPatchWidth = 8 * (kForwardThreads / 32);
+constexpr int kPatchHeight = 4;
 
 struct Taps {
-  int64_t offset[4];  // nw, ne, sw, se, as offsets in one (H, W) image
+  int offset[4];      // nw, ne, sw, se, as offsets in one (H, W) image
   float weight[4];    // 0 for a tap outside the image
 };
 
@@ -58,34 +74,46 @@ __device__ __forceinline__ Taps make_taps(float gx, float gy, int ih,
   for (int k = 0; k < 4; ++k) {
     const bool valid = xs[k] >= 0 && xs[k] <= iw - 1 && ys[k] >= 0 &&
                        ys[k] <= ih - 1;
-    t.offset[k] = valid ? static_cast<int64_t>(ys[k]) * iw + xs[k] : 0;
+    t.offset[k] = valid ? ys[k] * iw + xs[k] : 0;
     t.weight[k] = valid ? ws[k] : 0.0f;
   }
   return t;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float tap_sum(const float* __restrict__ plane,
+                                         const Taps& t) {
+  float v = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v += __ldg(plane + t.offset[k]) * t.weight[k];
+  return v;
+}
+
+// Grid (ceil(W' / 32) * ceil(H' / 4), B * N): a block covers a 32 x 4
+// patch of one crop, warp w its columns 8w ... 8w + 7 and lane (col, row) =
+// (lane % 8, lane / 8) one pixel. Each gather of a warp thus reads around
+// an 8 x 4 patch of output pixels, whose taps fall on a few neighbouring
+// image rows whatever the crop's rotation.
+__global__ void __launch_bounds__(kForwardThreads)
     warp_forward_kernel(const float* __restrict__ images,
                         const float* __restrict__ grid,
-                        float* __restrict__ out, int64_t total, int crops,
-                        int channels, int ih, int iw, int64_t out_pixels) {
-  const int64_t pixel = static_cast<int64_t>(blockIdx.x) * kThreads +
-                        threadIdx.x;
-  if (pixel >= total) return;
-  const int64_t crop = pixel / out_pixels;  // b * N + n
-  const int64_t p = pixel - crop * out_pixels;
-  const int64_t image = crop / crops;
-  const Taps t = make_taps(__ldg(grid + 2 * pixel),
-                           __ldg(grid + 2 * pixel + 1), ih, iw);
-  const int64_t image_size = static_cast<int64_t>(ih) * iw;
-  const float* src = images + image * channels * image_size;
-  float* dst = out + crop * channels * out_pixels + p;
+                        float* __restrict__ out, int crops, int channels,
+                        int ih, int iw, int oh, int ow) {
+  const int crop = blockIdx.y;  // b * N + n
+  const int tiles_x = (ow + kPatchWidth - 1) / kPatchWidth;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x = (blockIdx.x % tiles_x) * kPatchWidth + warp * 8 + lane % 8;
+  const int y = (blockIdx.x / tiles_x) * kPatchHeight + lane / 8;
+  if (x >= ow || y >= oh) return;
+  const int pixels = oh * ow;
+  const int p = y * ow + x;
+  const int image_size = ih * iw;
+  const float* src = images + (crop / crops) * channels * image_size;
+  float* dst = out + crop * channels * pixels + p;
+  const float2 xy =
+      __ldg(reinterpret_cast<const float2*>(grid) + crop * pixels + p);
+  const Taps t = make_taps(xy.x, xy.y, ih, iw);
   for (int c = 0; c < channels; ++c) {
-    const float* plane = src + c * image_size;
-    float v = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) v += __ldg(plane + t.offset[k]) * t.weight[k];
-    dst[c * out_pixels] = v;
+    dst[c * pixels] = tap_sum(src + c * image_size, t);
   }
 }
 
@@ -130,13 +158,14 @@ extern "C" int warp_forward_f32(const void* images, const void* grid,
                                 void* out, int64_t batch, int crops,
                                 int channels, int ih, int iw, int oh, int ow,
                                 void* stream) {
-  const int64_t out_pixels = static_cast<int64_t>(oh) * ow;
-  const int64_t total = batch * crops * out_pixels;
-  if (total == 0) return 0;
-  warp_forward_kernel<<<blocks(total), kThreads, 0,
+  if (batch * crops * oh * ow == 0) return 0;
+  const dim3 blocks_grid(((ow + kPatchWidth - 1) / kPatchWidth) *
+                             ((oh + kPatchHeight - 1) / kPatchHeight),
+                         static_cast<unsigned int>(batch * crops));
+  warp_forward_kernel<<<blocks_grid, kForwardThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(images), static_cast<const float*>(grid),
-      static_cast<float*>(out), total, crops, channels, ih, iw, out_pixels);
+      static_cast<float*>(out), crops, channels, ih, iw, oh, ow);
   return static_cast<int>(cudaGetLastError());
 }
 

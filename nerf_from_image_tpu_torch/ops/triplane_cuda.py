@@ -47,6 +47,14 @@ FUSED_VALUES = 10
 # H100's 132 SMs; each warp then walks over many tiles of points, so the
 # weights are staged in shared memory once per block.
 FUSED_MAX_BLOCKS = 132 * 16
+# The binned backward (B2): texel tiles of GRAD_TILE^2, bins cut into
+# chunks of at most GRAD_CHUNK (point, plane) entries, one block each; the
+# histogram keeps one image's 3 * tiles^2 counters in 48 KB of shared
+# memory, so R <= GRAD_MAX_TILES * GRAD_TILE.
+GRAD_TILE = 16
+GRAD_CHUNK = 2048
+GRAD_MAX_TILES = 64
+MAX_INT32 = 2**31 - 1
 
 launches = 0
 grad_launches = 0
@@ -54,39 +62,24 @@ grad_planes_launches = 0
 fused_launches = 0
 
 
-def _function():
-    fn = cuda_build.load_library(KERNEL).triplane_sample_bf16
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = {
+    (KERNEL, 'triplane_sample_bf16'):
+        [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64,
+                                 ctypes.c_int, ctypes.c_void_p],
+    (GRAD_KERNEL, 'triplane_sample_grad_bf16'):
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    (GRAD_PLANES_KERNEL, 'triplane_sample_grad_planes_bf16'):
+        [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64,
+                                 ctypes.c_int, ctypes.c_void_p],
+    (FUSED_KERNEL, 'triplane_sample_fused_bf16'):
+        [ctypes.c_void_p] * 8 + [ctypes.c_int64, ctypes.c_int64,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p],
+}
 
 
-def _grad_function():
-    fn = cuda_build.load_library(GRAD_KERNEL).triplane_sample_grad_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _grad_planes_function():
-    fn = cuda_build.load_library(
-        GRAD_PLANES_KERNEL).triplane_sample_grad_planes_bf16
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _fused_function():
-    fn = cuda_build.load_library(FUSED_KERNEL).triplane_sample_fused_bf16
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64, ctypes.c_int64,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _function(name: str, symbol: str):
+    return cuda_build.function(name, symbol, _ARGTYPES[name, symbol])
 
 
 def _check(planes_cl: torch.Tensor, coords: torch.Tensor) -> None:
@@ -133,24 +126,45 @@ def launch(planes_cl: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
                       device=planes_cl.device)
     if out.numel() == 0:
         return out
-    fn = _function()
-    with torch.cuda.device(planes_cl.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(planes_cl.data_ptr(), coords.data_ptr(), out.data_ptr(),
-                 b, n, r, stream)
+    fn = _function(KERNEL, 'triplane_sample_bf16')
+    err = cuda_build.call(fn, planes_cl, planes_cl.data_ptr(),
+                          coords.data_ptr(), out.data_ptr(), b, n, r)
     if err != 0:
         raise RuntimeError(f'{KERNEL} launch failed: cudaError {err}')
     launches += 1
     return out
 
 
+def grad_scratch_sizes(batch: int, n: int, r: int) -> Tuple[int, int]:
+    """(bins, most work items) of the binned backward at B = batch, N = n
+    and R = r; raises where the kernel's int32 indices or its shared
+    histogram would not hold them."""
+    tiles = -(-r // GRAD_TILE)
+    entries = 3 * batch * n
+    planes = batch * 3 * r * r * CHANNELS
+    if tiles > GRAD_MAX_TILES:
+        raise ValueError(f'the binned backward takes R up to '
+                         f'{GRAD_MAX_TILES * GRAD_TILE}, got {r}')
+    if max(entries, planes, batch * n * CHANNELS) > MAX_INT32:
+        raise ValueError(f'the binned backward takes under 2^31 (point, '
+                         f'plane) pairs, texel channels and cotangent '
+                         f'values, got B {batch}, N {n}, R {r}')
+    bins = batch * 3 * tiles * tiles
+    return bins, bins + entries // GRAD_CHUNK + 1
+
+
 def launch_grad_raw(planes_cl: torch.Tensor, coords: torch.Tensor,
                     grad_out: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Runs the backward kernel: planes (B, 3, R, R, 32) bf16, coords
-    (B, N, 3) f32, grad_out (B, N, 32) bf16 -> (dplanes (B, 3, R, R, 32)
-    f32, dcoords (B, N, 3) f32)."""
+    """Runs the backward kernels (one count in `grad_launches`; the call
+    bins the points, accumulates each bin in shared memory and sums the
+    coordinate partials, five CUDA kernels): planes (B, 3, R, R, 32) bf16,
+    coords (B, N, 3) f32, grad_out (B, N, 32) bf16 -> (dplanes
+    (B, 3, R, R, 32) f32, dcoords (B, N, 3) f32)."""
     global grad_launches
+    if planes_cl.ndim == 5 and coords.ndim == 3:
+        grad_scratch_sizes(coords.shape[0], coords.shape[1],
+                           planes_cl.shape[2])
     _check(planes_cl, coords)
     b, _, r, _, c = planes_cl.shape
     n = coords.shape[1]
@@ -161,19 +175,25 @@ def launch_grad_raw(planes_cl: torch.Tensor, coords: torch.Tensor,
                          f'on {planes_cl.device}, got {grad_out.dtype} '
                          f'{tuple(grad_out.shape)} on {grad_out.device}')
     _check_kernel_inputs(planes_cl, coords)
-    dplanes = torch.zeros(planes_cl.shape, dtype=torch.float32,
-                          device=planes_cl.device)
-    dcoords = torch.empty((b, n, 3), dtype=torch.float32,
-                          device=coords.device)
+    dev = planes_cl.device
+    dplanes = torch.zeros(planes_cl.shape, dtype=torch.float32, device=dev)
+    dcoords = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
     if dcoords.numel() == 0:
         dcoords.zero_()
         return dplanes, dcoords
-    fn = _grad_function()
-    with torch.cuda.device(planes_cl.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(planes_cl.data_ptr(), coords.data_ptr(),
-                 grad_out.data_ptr(), dplanes.data_ptr(), dcoords.data_ptr(),
-                 b, n, r, stream)
+    bins, max_work = grad_scratch_sizes(b, n, r)
+    partial = torch.empty((3, b * n, 2), dtype=torch.float32, device=dev)
+    counts = torch.empty(bins, dtype=torch.int32, device=dev)
+    work = torch.empty((max_work, 2), dtype=torch.int32, device=dev)
+    work_count = torch.empty(1, dtype=torch.int32, device=dev)
+    entries = torch.empty((3 * b * n, 4), dtype=torch.int32, device=dev)
+    fn = _function(GRAD_KERNEL, 'triplane_sample_grad_bf16')
+    err = cuda_build.call(
+        fn, planes_cl, planes_cl.data_ptr(), coords.data_ptr(),
+        grad_out.data_ptr(), dplanes.data_ptr(), dcoords.data_ptr(),
+        partial.data_ptr(), counts.data_ptr(), work.data_ptr(),
+        work_count.data_ptr(), entries.data_ptr(), b, n, r, GRAD_CHUNK,
+        max_work)
     if err != 0:
         raise RuntimeError(f'{GRAD_KERNEL} launch failed: cudaError {err}')
     grad_launches += 1
@@ -217,11 +237,9 @@ def launch_grad_planes(plane_shape: Sequence[int], coords: torch.Tensor,
                           device=coords.device)
     if coords.numel() == 0:
         return dplanes
-    fn = _grad_planes_function()
-    with torch.cuda.device(coords.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(coords.data_ptr(), grad_out.data_ptr(), dplanes.data_ptr(),
-                 b, n, r, stream)
+    fn = _function(GRAD_PLANES_KERNEL, 'triplane_sample_grad_planes_bf16')
+    err = cuda_build.call(fn, coords, coords.data_ptr(), grad_out.data_ptr(),
+                          dplanes.data_ptr(), b, n, r)
     if err != 0:
         raise RuntimeError(f'{GRAD_PLANES_KERNEL} launch failed: cudaError '
                            f'{err}')
@@ -290,13 +308,11 @@ def launch_fused(planes_cl: torch.Tensor, coords: torch.Tensor,
                       device=planes_cl.device)
     if out.numel() == 0:
         return out
-    fn = _fused_function()
-    with torch.cuda.device(planes_cl.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(planes_cl.data_ptr(), coords.data_ptr(), w0.data_ptr(),
-                 b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                 palette.data_ptr(), out.data_ptr(), b, n, r, k,
-                 FUSED_MAX_BLOCKS, stream)
+    fn = _function(FUSED_KERNEL, 'triplane_sample_fused_bf16')
+    err = cuda_build.call(fn, planes_cl, planes_cl.data_ptr(),
+                          coords.data_ptr(), w0.data_ptr(), b0.data_ptr(),
+                          w1.data_ptr(), b1.data_ptr(), palette.data_ptr(),
+                          out.data_ptr(), b, n, r, k, FUSED_MAX_BLOCKS)
     if err != 0:
         raise RuntimeError(f'{FUSED_KERNEL} launch failed: cudaError {err}')
     fused_launches += 1

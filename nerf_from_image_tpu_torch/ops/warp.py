@@ -12,7 +12,9 @@ keeps float32 throughout, so it equals the JAX package's XLA path
 `grid_sample_zeros` takes the plain version (`warp_plain`: the image
 repeated per crop, then `core.augment._grid_sample_zeros` and its
 autograd) only for tensors that lie on the CPU; for CUDA tensors it
-launches the kernels, through `_Warp`, or raises. `launches` and
+launches the kernels, through `_Warp`, or raises. The kernels take 32-bit
+offsets and one block row per crop: `_check_sizes` raises for a tensor of 2^31
+elements or more and for more than 65,535 crops. `launches` and
 `grad_launches` count the forward and backward launches.
 """
 
@@ -27,17 +29,13 @@ from nerf_from_image_tpu_torch.ops import cuda_build
 
 KERNEL = 'warp'
 MAX_CHANNELS = 6
+MAX_ELEMENTS = 2**31 - 1  # the kernels' 32-bit offsets
+MAX_CROPS = 65535  # B * N: the forward's grid rows
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 6 + \
+    [ctypes.c_void_p]
 
 launches = 0
 grad_launches = 0
-
-
-def _function(name: str):
-    fn = getattr(cuda_build.load_library(KERNEL), name)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] + \
-        [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _check(images: torch.Tensor, grid: torch.Tensor) -> None:
@@ -56,6 +54,18 @@ def _check(images: torch.Tensor, grid: torch.Tensor) -> None:
                          f'{tuple(grid.shape)}')
 
 
+def _check_sizes(images_shape, grid: torch.Tensor) -> None:
+    """The kernels' limits: 32-bit offsets, one grid row per crop."""
+    b, c, ih, iw = images_shape
+    _, n, oh, ow, _ = grid.shape
+    if (max(b * c * ih * iw, grid.numel(), b * n * c * oh * ow) >
+            MAX_ELEMENTS or b * n > MAX_CROPS):
+        raise ValueError(f'the warp kernels take under 2^31 elements a '
+                         f'tensor and at most {MAX_CROPS} crops, got images '
+                         f'{tuple(images_shape)} and grid '
+                         f'{tuple(grid.shape)}')
+
+
 def _launch(name: str, first: torch.Tensor, grid: torch.Tensor,
             out: torch.Tensor, images_shape) -> int:
     """Launches `name`; returns the number of launches made (0 or 1)."""
@@ -68,11 +78,9 @@ def _launch(name: str, first: torch.Tensor, grid: torch.Tensor,
         raise ValueError('the warp kernels take contiguous tensors')
     if out.numel() == 0 or first.numel() == 0:
         return 0
-    fn = _function(name)
-    with torch.cuda.device(first.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(first.data_ptr(), grid.data_ptr(), out.data_ptr(), b, n, c,
-                 ih, iw, oh, ow, stream)
+    fn = cuda_build.function(KERNEL, name, ARGTYPES)
+    err = cuda_build.call(fn, first, first.data_ptr(), grid.data_ptr(),
+                          out.data_ptr(), b, n, c, ih, iw, oh, ow)
     if err != 0:
         raise RuntimeError(f'{name} launch failed: cudaError {err}')
     return 1
@@ -83,10 +91,10 @@ def launch(images: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     (B, N, C, H', W'), all float32."""
     global launches
     _check(images, grid)
+    _check_sizes(images.shape, grid)
     b, c = images.shape[:2]
     _, n, oh, ow, _ = grid.shape
-    out = torch.empty((b, n, c, oh, ow), dtype=torch.float32,
-                      device=images.device)
+    out = images.new_empty((b, n, c, oh, ow))
     launches += _launch('warp_forward_f32', images, grid, out, images.shape)
     return out
 
@@ -96,6 +104,7 @@ def launch_grad(grad_out: torch.Tensor, grid: torch.Tensor,
     """Runs the backward kernel: grad_out (B, N, C, H', W') and the grid
     -> the gradient of the images, (B, C, H, W) float32."""
     global grad_launches
+    _check_sizes(images_shape, grid)
     b, c, _, _ = images_shape
     _, n, oh, ow, _ = grid.shape
     if (grad_out.shape != (b, n, c, oh, ow) or

@@ -22,7 +22,8 @@ from nerf_from_image_tpu_torch.models.lpips import LPIPS
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / 'nerf_from_image_tpu_torch'
-PORT_SOURCES = sorted(PORT.rglob('*.py')) + [REPO / 'chip_smoke.py']
+PORT_SOURCES = sorted(PORT.rglob('*.py')) + [REPO / 'chip_smoke.py',
+                                              REPO / 'chip_ab.py']
 
 
 def _module_names():
