@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Two trees of the port on one card, in turns: B2, B3 forward and the
-inversion step.
+"""Two trees of the port on one card, in turns: B1, B5a, the renders, B2,
+B3 forward and the inversion step.
 
     python3 chip_ab.py PARENT_ROOT CHANGE_ROOT
 
@@ -10,20 +10,31 @@ per turn, in the order parent, change, change, parent; each process
 imports the port and `chip_smoke.py` from its own root, builds that
 root's kernels, and times, on the same seeded inputs:
 
-- B2 (`triplane_cuda.launch_grad_raw`) at the flagship coarse pass
-  (bench.py's camera, 256^2 planes), at the coarse pass of one inversion
-  geometry (p3d_car's box, random azimuths) and on a pile-up of points
-  clamped outside the box;
+- B1 (`triplane_cuda.launch`) at the flagship coarse pass (bench.py's
+  camera, 256^2 planes), at the coarse pass of one inversion geometry
+  (p3d_car's box, random azimuths) and at the flagship pass on 512^2
+  planes;
+- B5a (`triplane_cuda.launch_fused`, the flagship generator's decoder
+  weights and palette) at the flagship pass on 256^2 and 512^2 planes;
+- the flagship render unfused (B1) and fused (B5a), in turns, host clock
+  between synchronisations;
+- B2 (`triplane_cuda.launch_grad_raw`) at the flagship coarse pass, at
+  the inversion geometry and on a pile-up of points clamped outside the
+  box;
 - B3 forward (`warp.launch`) at the inversion's 8 images into 15 crops,
   and `F.grid_sample` on the same crops;
 - the full-width inversion step (`invert.optimizer.make_inversion_step`,
   as `chip_smoke.py`'s inversion phase builds it), host clock between
   synchronisations.
 
-Kernel times are the median of CUDA-event times around single calls (per
-call) and the summed kernel durations of a torch.profiler trace over the
-calls (device). Prints the card's name and power limit, one JSON line per
-turn and a last summary line; exits non-zero without CUDA.
+The first parent turn and the first change turn keep their B1 and B5a
+outputs, and the summary gives, for each, the largest difference between
+parent and change: in value, in bf16 ulps of the output's largest
+magnitude, and in the count of values that differ. Kernel times are the median of CUDA-event times around single
+calls (per call) and the summed kernel durations of a torch.profiler
+trace over the calls (device). Prints the card's name and power limit,
+one JSON line per turn and a last summary line; exits non-zero without
+CUDA.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -53,7 +65,9 @@ def device_ms(fn, iters: int = 10) -> float:
     return total / 1e3 / iters
 
 
-def worker(root: str) -> dict:
+def worker(root: str, save: str) -> dict:
+    """Times one root's kernels and steps; with `save` not empty, keeps
+    its B1 and B5a outputs there (torch.save, on the host)."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -63,6 +77,7 @@ def worker(root: str) -> dict:
     from nerf_from_image_tpu_torch.core import augment
     from nerf_from_image_tpu_torch.core import rays as rays_lib
     from nerf_from_image_tpu_torch.invert import optimizer as inv
+    from nerf_from_image_tpu_torch.models.generator import Generator
     from nerf_from_image_tpu_torch.ops import cuda_build
     from nerf_from_image_tpu_torch.ops import triplane_cuda
     from nerf_from_image_tpu_torch.ops import warp
@@ -72,7 +87,8 @@ def worker(root: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda')
     t0 = time.perf_counter()
-    cuda_build.build([triplane_cuda.GRAD_KERNEL, warp.KERNEL])
+    cuda_build.build([triplane_cuda.KERNEL, triplane_cuda.FUSED_KERNEL,
+                      triplane_cuda.GRAD_KERNEL, warp.KERNEL])
     build_s = time.perf_counter() - t0
 
     def coarse(cam, focal, scene_range):
@@ -102,6 +118,58 @@ def worker(root: str) -> dict:
                                           smoke.INV_CFG.scene_range),
              'pile-up': torch.where(inside, u * 2.0 - 1.0,
                                     sign * (1.0 + 2.0 * u)).contiguous()}
+    # B1 and B5a: the flagship generator's decoder weights and palette,
+    # and 512^2 planes of their own seed.
+    gen_model = Generator(dtype=torch.bfloat16, device='cuda', seed=0,
+                          **smoke.GEN_KWARGS)
+    gen_model.eval()
+    z = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (b, smoke.GEN_KWARGS['latent_dim'])).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        palette = gen_model.synthesize(gen_model.map(z)).attention_values
+        w0, b0, w1, b1 = gen_model.fused_decode_weights()
+    decode = (w0.to(torch.bfloat16).contiguous(), b0.float().contiguous(),
+              w1.to(torch.bfloat16).contiguous(), b1.float().contiguous(),
+              palette.to(torch.bfloat16).contiguous())
+    planes_512 = torch.randn(
+        (b, 3, 512, 512, c), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(22)).to(
+            torch.bfloat16)
+    forward = {'coarse pass': (planes, cases['coarse pass']),
+               'inversion geometry': (planes, cases['inversion geometry']),
+               '512 planes': (planes_512, cases['coarse pass'])}
+    outputs, b1_times, b5a_times = {}, {}, {}
+    for name, (pl, co) in forward.items():
+        def sample(pl=pl, co=co):
+            return triplane_cuda.launch(pl, co)
+
+        outputs[f'B1 {name}'] = sample()
+        b1_times[name] = {'ms': smoke.time_cuda(sample, 20),
+                          'device_ms': device_ms(sample)}
+        if name == 'inversion geometry':
+            continue
+
+        def fused(pl=pl, co=co):
+            return triplane_cuda.launch_fused(pl, co, *decode)
+
+        outputs[f'B5a {name}'] = fused()
+        b5a_times[name] = {'ms': smoke.time_cuda(fused, 20),
+                           'device_ms': device_ms(fused)}
+    if save:
+        torch.save({k: v.cpu() for k, v in outputs.items()}, save)
+    del outputs, planes_512
+    fused_model = gen_model.fused_view()
+    unfused_ms, fused_ms = [], []
+    for _ in range(2):  # in turns: unfused, fused, unfused, fused
+        unfused_ms += smoke.timed_renders(gen_model, z, cam, focal, 3)
+        fused_ms += smoke.timed_renders(fused_model, z, cam, focal, 3)
+    renders = {'unfused_ms': statistics.median(unfused_ms),
+               'unfused_ms_all': unfused_ms,
+               'fused_ms': statistics.median(fused_ms),
+               'fused_ms_all': fused_ms}
+    del gen_model, fused_model
+    torch.cuda.empty_cache()
+
     b2 = {}
     for name, coords in cases.items():
         grad_out = torch.randn((b, coords.shape[1], c), generator=gen,
@@ -148,14 +216,37 @@ def worker(root: str) -> dict:
         step(params, optimizer, target, step_gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
-    return {'root': root, 'build_s': build_s, 'b2': b2, 'b3_forward': b3,
+    return {'root': root, 'build_s': build_s, 'b1': b1_times,
+            'b5a': b5a_times, 'renders': renders, 'b2': b2, 'b3_forward': b3,
             'step_ms': statistics.median(times[1:]),
             'step_ms_all': times[1:]}
 
 
+def output_differences(parent: str, change: str) -> dict:
+    """For each kept output, the largest difference between the parent's
+    and the change's, in value and in bf16 ulps of the output's largest
+    magnitude, and the count of values that differ."""
+    import math
+
+    import torch
+    a, b = torch.load(parent), torch.load(change)
+    diffs = {}
+    for key in a:
+        largest = float(a[key].float().abs().max())
+        diff = float((a[key].float() - b[key].float()).abs().max())
+        # bf16 keeps 8 significant bits: one ulp at x is 2^(e - 7) for x
+        # in [2^e, 2^(e + 1)).
+        ulp = 2.0 ** (math.floor(math.log2(largest)) - 7) if largest else 1
+        diffs[key] = {'max_abs_diff': diff, 'largest': largest,
+                      'max_diff_in_ulps_of_largest': diff / ulp,
+                      'values_differing': int((a[key] != b[key]).sum()),
+                      'values': a[key].numel()}
+    return diffs
+
+
 def main() -> None:
-    if len(sys.argv) == 3 and sys.argv[1] == '--worker':
-        print(json.dumps(worker(sys.argv[2])), flush=True)
+    if len(sys.argv) == 4 and sys.argv[1] == '--worker':
+        print(json.dumps(worker(sys.argv[2], sys.argv[3])), flush=True)
         return
     if len(sys.argv) != 3:
         raise SystemExit(__doc__)
@@ -168,20 +259,37 @@ def main() -> None:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     parent, change = (str(pathlib.Path(p).resolve()) for p in sys.argv[1:])
     runs = []
+    kept = tempfile.mkdtemp(prefix='chip_ab_')
+    saves = {'parent': f'{kept}/parent.pt', 'change': f'{kept}/change.pt'}
     for label, root in (('parent', parent), ('change', change),
                         ('change', change), ('parent', parent)):
         script = str(pathlib.Path(__file__).resolve())
-        out = subprocess.run([sys.executable, script, '--worker', root],
-                             capture_output=True, text=True, check=True,
-                             cwd=root, timeout=900)
+        save = saves.pop(label, '')
+        out = subprocess.run([sys.executable, script, '--worker', root,
+                              save], capture_output=True, text=True,
+                             check=True, cwd=root, timeout=900)
         run = json.loads(out.stdout.strip().splitlines()[-1])
         run['label'] = label
         runs.append(run)
         print(json.dumps(run), flush=True)
-    summary = {}
+    summary = {'outputs': output_differences(f'{kept}/parent.pt',
+                                             f'{kept}/change.pt')}
+    for path in ('parent.pt', 'change.pt'):
+        pathlib.Path(kept, path).unlink()
+    pathlib.Path(kept).rmdir()
     for label in ('parent', 'change'):
         mine = [r for r in runs if r['label'] == label]
         summary[label] = {
+            'b1_ms': {k: [r['b1'][k]['ms'] for r in mine]
+                      for k in mine[0]['b1']},
+            'b1_device_ms': {k: [r['b1'][k]['device_ms'] for r in mine]
+                             for k in mine[0]['b1']},
+            'b5a_ms': {k: [r['b5a'][k]['ms'] for r in mine]
+                       for k in mine[0]['b5a']},
+            'b5a_device_ms': {k: [r['b5a'][k]['device_ms'] for r in mine]
+                              for k in mine[0]['b5a']},
+            'render_unfused_ms': [r['renders']['unfused_ms'] for r in mine],
+            'render_fused_ms': [r['renders']['fused_ms'] for r in mine],
             'b2_ms': {k: [r['b2'][k]['ms'] for r in mine]
                       for k in mine[0]['b2']},
             'b2_device_ms': {k: [r['b2'][k]['device_ms'] for r in mine]

@@ -34,11 +34,15 @@ Phases, each printed as one JSON line:
              C++ compiler builds the PnP solver
   kernel     each kernel (B1, B2, B4, B3 forward, B3 backward, B5a) against
              its plain PyTorch version at the shapes its path gives it; its
-             time, bound and library yardstick; B2 also on one inversion
-             geometry, a pile-up of clamped points, tile boundaries, a
-             ragged N and 512^2 planes, and B3's forward on crops outside
-             the image at an odd size; for B2 and B3's forward, device
-             time (profiler) beside the time a call takes
+             time, bound and library yardstick; B1 and B5a also on a ragged
+             N with B = 3 (tiles straddle images), a pile-up of clamped
+             points, R = 40 and R = 512, B5a with its special-function
+             floor (sfu_ms) and B1's time on its points beside it; B2 also
+             on one inversion geometry, a pile-up of clamped points, tile
+             boundaries, a ragged N and 512^2 planes, and B3's forward on
+             crops outside the image at an odd size; for B1, B2, B3's
+             forward and B5a, device time (profiler) beside the time a
+             call takes
   model      the full-width generator is built
   slice      map -> synthesize -> render through the kernels (launch counts
              reset just before and read just after), output checks, the same
@@ -118,6 +122,8 @@ GEN_KWARGS = dict(latent_dim=512, scene_range=SCENE_RANGE,
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # float32 outside the tensor cores
 BF16_FLOPS = 989e12  # bf16 tensor cores
+# Special-function results (exp2, log2, reciprocal) per SM per clock.
+SFU_PER_SM_CLOCK = 16
 
 # Kernel against plain version: both sum the same bf16 texels in float32;
 # they differ only in the order of the 12-tap sum and in where the one
@@ -343,9 +349,11 @@ def build_phase() -> None:
         cuda_build.build(sources)
         pnp_build.result()
     pnp_seconds = time.perf_counter() - started
+    # Each kernel's entry, registers, shared memory and spills.
     ptxas = {name: [line.strip() for line in
                     cuda_build.build_log.get(name, '').splitlines()
-                    if 'registers' in line or 'spill' in line]
+                    if any(key in line for key in
+                           ('entry function', 'registers', 'spill'))]
              for name in sources}
     emit('build', started, nvcc_seconds=cuda_build.build_seconds,
          pnp_library=str(pnp.library_path().name),
@@ -393,17 +401,77 @@ def phase_planes() -> torch.Tensor:
 
 
 def kernel_phase() -> dict:
-    """The triplane kernel against its plain version; returns its row."""
+    """The triplane kernel against its plain version at the flagship pass
+    and at `forward_cases`; returns its row."""
     started = time.perf_counter()
+    cases = {what: sampler_case(planes_cl, coords)
+             for what, (planes_cl, coords) in forward_cases().items()}
     return sampler_check(phase_planes(), coarse_coords(torch.device('cuda')),
-                         triplane_cuda.KERNEL, TRIPLANE_TPU_KERNEL, started)
+                         triplane_cuda.KERNEL, TRIPLANE_TPU_KERNEL, started,
+                         cases)
+
+
+def pile_up(gen: torch.Generator, b: int, n: int) -> torch.Tensor:
+    """(b, n, 3) points, 90% of them outside the box on every axis they
+    leave it on, from 1 to 3 box half-widths out, so they clamp onto the
+    border texels and the corners; the rest inside."""
+    dev = torch.device('cuda')
+    u = torch.rand((b, n, 3), generator=gen, device=dev)
+    sign = torch.where(torch.rand((b, n, 3), generator=gen, device=dev) <
+                       0.5, -1.0, 1.0)
+    inside = torch.rand((b, n, 1), generator=gen, device=dev) < 0.1
+    return torch.where(inside, u * 2.0 - 1.0, sign * (1.0 + 2.0 * u))
+
+
+def forward_cases() -> dict:
+    """The forward kernels' (B1, B5a) further cases, each (planes, coords)
+    from a seed: a ragged N with B = 3, so that the warps' point tiles
+    straddle images; a pile-up of points clamped outside the box; R = 40,
+    a resolution no tile divides; and R = 512."""
+    gen = torch.Generator(device='cuda').manual_seed(8)
+
+    def planes(b, r):
+        return torch.randn((b, 3, r, r, triplane_cuda.CHANNELS),
+                           generator=gen, device='cuda').to(torch.bfloat16)
+
+    def uniform(b, n):
+        return torch.rand((b, n, 3), generator=gen,
+                          device='cuda') * 2.4 - 1.2
+
+    r = GEN_KWARGS['img_resolution']
+    return {'ragged N': (planes(3, r), uniform(3, 8191)),
+            'pile-up': (planes(BATCH, r), pile_up(gen, BATCH, 1 << 20)),
+            'R 40': (planes(2, 40), uniform(2, 100003)),
+            'R 512': (planes(2, R512), uniform(2, 100003))}
+
+
+def sampler_case(planes_cl: torch.Tensor, coords: torch.Tensor) -> dict:
+    """B1 against its plain version at KERNEL_ATOL and KERNEL_RTOL on one
+    of `forward_cases`, timed where it is the pile-up's full pass."""
+    out = triplane_cuda.launch(planes_cl, coords)
+    torch.cuda.synchronize()
+    ref = triplane.sample_triplane_plain(planes_cl, coords)
+    err = (out.float() - ref.float()).abs()
+    bad = int((err > KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()).sum())
+    if bad or not torch.isfinite(out).all():
+        raise AssertionError(f'triplane kernel disagrees with its plain '
+                             f'version at {bad} values of a forward case '
+                             f'(B {coords.shape[0]}, N {coords.shape[1]}, '
+                             f'R {planes_cl.shape[2]})')
+    case = {'batch': coords.shape[0], 'points': coords.shape[1],
+            'plane_resolution': planes_cl.shape[2],
+            'max_abs_err': float(err.max())}
+    if coords.shape[1] >= 1 << 20:
+        fn = lambda: triplane_cuda.launch(planes_cl, coords)  # noqa: E731
+        case.update(ms=time_cuda(fn, 10), device_ms=device_ms(fn))
+    return case
 
 
 def sampler_check(planes_cl: torch.Tensor, coords: torch.Tensor, name: str,
-                  replaces: str, started: float) -> dict:
-    """B1 against its plain version on these planes and points, its time,
-    bound and `F.grid_sample` yardstick; emits a kernel line and returns
-    its row."""
+                  replaces: str, started: float, cases: dict = None) -> dict:
+    """B1 against its plain version on these planes and points, its time
+    (per call and on the device), bound and `F.grid_sample` yardstick;
+    emits a kernel line (with `cases`, if given) and returns its row."""
     r = planes_cl.shape[2]
     out = triplane_cuda.launch(planes_cl, coords)
     torch.cuda.synchronize()
@@ -416,6 +484,7 @@ def sampler_check(planes_cl: torch.Tensor, coords: torch.Tensor, name: str,
                              f'version at {bad} values (max {max_err})')
 
     ms = time_cuda(lambda: triplane_cuda.launch(planes_cl, coords), 20)
+    dev_ms = device_ms(lambda: triplane_cuda.launch(planes_cl, coords))
     plain_ms = time_cuda(
         lambda: triplane.sample_triplane_plain(planes_cl, coords), 5, 1)
 
@@ -437,6 +506,7 @@ def sampler_check(planes_cl: torch.Tensor, coords: torch.Tensor, name: str,
         return s.reshape(BATCH, 3, -1, n).mean(dim=1)
 
     library_ms = time_cuda(library, 10)
+    library_device_ms = device_ms(library, 5)
     library_err = float((library().transpose(1, 2).float() -
                          ref.float()).abs().max())
 
@@ -448,40 +518,102 @@ def sampler_check(planes_cl: torch.Tensor, coords: torch.Tensor, name: str,
     b = bound(bytes_moved, points * 3 * 4 * triplane_cuda.CHANNELS * 2)
     emit('kernel', started, name=name, plane_resolution=r, points=points,
          max_abs_err=max_err, mean_abs_err=mean_err, atol=KERNEL_ATOL,
-         rtol=KERNEL_RTOL, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-         library_max_abs_err=library_err, touched_texels=texels, **b)
+         rtol=KERNEL_RTOL, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+         library_ms=library_ms, library_device_ms=library_device_ms,
+         library_max_abs_err=library_err, touched_texels=texels,
+         cases=cases, **b)
     return row(name, TRIPLANE_SOURCE, replaces, max_err, ms, plain_ms,
                library_ms, b)
 
 
-def fused_check(planes_cl: torch.Tensor, coords: torch.Tensor,
-                gen: Generator, palette: torch.Tensor, name: str,
-                replaces: str, started: float) -> dict:
-    """B5a against its plain version on these planes and points, with the
-    generator's decoder weights and this palette: its time, bound, and the
-    port's unfused path on the same points (B1, then the decoder MLP, the
-    softmax and the palette product) as its yardstick; emits a kernel line
-    and returns its row."""
-    r = planes_cl.shape[2]
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
+                          '--format=csv,noheader,nounits'],
+                         capture_output=True, text=True, check=True,
+                         timeout=60)
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def sfu_ms(points: int, k: int) -> float:
+    """The fused decode's special-function floor: per point one exp2 and
+    one log2 for each hidden unit's softplus and one exp2 for each of the
+    K logits, at SFU_PER_SM_CLOCK results per SM per clock at the card's
+    highest clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ops = points * (2 * triplane_cuda.HIDDEN + k)
+    return ops / (sms * SFU_PER_SM_CLOCK * max_sm_clock_hz()) * 1e3
+
+
+def decode_args(gen: Generator, planes_cl: torch.Tensor,
+                coords: torch.Tensor, palette: torch.Tensor) -> tuple:
+    """`triplane_cuda.launch_fused`'s arguments: these planes and points,
+    the generator's decoder weights and this palette, in the kernel's
+    types."""
     with torch.no_grad():
         w0, b0, w1, b1 = gen.fused_decode_weights()
         w0, w1 = w0.to(torch.bfloat16).contiguous(), w1.to(
             torch.bfloat16).contiguous()
         b0, b1 = b0.float().contiguous(), b1.float().contiguous()
     palette = palette.to(torch.bfloat16).contiguous()
-    args = (planes_cl, coords, w0, b0, w1, b1, palette)
+    return planes_cl, coords, w0, b0, w1, b1, palette
+
+
+def fused_error(args: tuple, what: str) -> tuple:
+    """B5a against its plain version at FUSED_RTOL_OF_MAX of the largest
+    value; returns the kernel's output, the largest error and value."""
     out = triplane_cuda.launch_fused(*args)
     torch.cuda.synchronize()
     ref = triplane.sample_triplane_fused_plain(*args)
-    err = (out.float() - ref.float()).abs()
-    max_err, scale = float(err.max()), float(ref.float().abs().max())
+    max_err = float((out.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
     if max_err > FUSED_RTOL_OF_MAX * scale or not torch.isfinite(out).all():
-        raise AssertionError(f'{name} disagrees with its plain version: max '
+        raise AssertionError(f'{what} disagrees with its plain version: max '
                              f'{max_err} against {FUSED_RTOL_OF_MAX} x '
                              f'{scale}')
-    del ref, err
+    return out, max_err, scale
+
+
+def fused_cases(gen: Generator) -> dict:
+    """B5a against its plain version at `forward_cases`, with the
+    generator's decoder weights and a seeded palette per image; the
+    pile-up's full pass timed."""
+    palettes = torch.Generator(device='cuda').manual_seed(9)
+    cases = {}
+    for what, (planes_cl, coords) in forward_cases().items():
+        palette = torch.randn(
+            (coords.shape[0], triplane_cuda.FUSED_VALUES, 3),
+            generator=palettes, device='cuda')
+        args = decode_args(gen, planes_cl, coords, palette)
+        _, max_err, scale = fused_error(args, f'fused decode ({what})')
+        cases[what] = {'batch': coords.shape[0], 'points': coords.shape[1],
+                       'plane_resolution': planes_cl.shape[2],
+                       'max_abs_err': max_err, 'largest': scale}
+        if coords.shape[1] >= 1 << 20:
+            fn = lambda: triplane_cuda.launch_fused(*args)  # noqa: E731
+            cases[what].update(ms=time_cuda(fn, 10), device_ms=device_ms(fn))
+    return cases
+
+
+def fused_check(planes_cl: torch.Tensor, coords: torch.Tensor,
+                gen: Generator, palette: torch.Tensor, name: str,
+                replaces: str, started: float, cases: dict = None) -> dict:
+    """B5a against its plain version on these planes and points, with the
+    generator's decoder weights and this palette: its time (per call and
+    on the device), bound, special-function floor, B1's time on the same
+    points (the sampling half), and the port's unfused path on the same
+    points (B1, then the decoder MLP, the softmax and the palette product)
+    as its yardstick; emits a kernel line (with `cases`, if given) and
+    returns its row."""
+    r = planes_cl.shape[2]
+    args = decode_args(gen, planes_cl, coords, palette)
+    planes_cl, coords, w0, b0, w1, b1, palette = args
+    out, max_err, scale = fused_error(args, name)
 
     ms = time_cuda(lambda: triplane_cuda.launch_fused(*args), 20)
+    dev_ms = device_ms(lambda: triplane_cuda.launch_fused(*args))
+    sampling_ms = time_cuda(lambda: triplane_cuda.launch(planes_cl, coords),
+                            20)
     plain_ms = time_cuda(lambda: triplane.sample_triplane_fused_plain(*args),
                          3, 1)
 
@@ -494,6 +626,7 @@ def fused_check(planes_cl: torch.Tensor, coords: torch.Tensor,
         return torch.cat((dec['density_or_distance'], rgb), dim=-1)
 
     library_ms = time_cuda(unfused, 10)
+    library_device_ms = device_ms(unfused, 5)
     library_err = float((unfused().float() - out.float()).abs().max())
 
     points = coords.shape[0] * coords.shape[1]
@@ -514,9 +647,12 @@ def fused_check(planes_cl: torch.Tensor, coords: torch.Tensor,
     b = bound(bytes_moved, f32_flops, bf16_flops)
     emit('kernel', started, name=name, plane_resolution=r, points=points,
          max_abs_err=max_err, largest=scale, rtol_of_max=FUSED_RTOL_OF_MAX,
-         ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+         ms=ms, device_ms=dev_ms, sampling_ms=sampling_ms,
+         sfu_ms=sfu_ms(points, k), plain_ms=plain_ms, library_ms=library_ms,
+         library_device_ms=library_device_ms,
          library='unfused: B1 + decoder.mlp + softmax + palette_rgb',
-         library_max_abs_err=library_err, touched_texels=texels, **b)
+         library_max_abs_err=library_err, touched_texels=texels, cases=cases,
+         **b)
     return row(name, FUSED_SOURCE, replaces, max_err, ms, plain_ms,
                library_ms, b)
 
@@ -639,15 +775,16 @@ def fused_render_check(gen: Generator, z, cam, focal, plain) -> dict:
 
 
 def fused_kernel_phase(gen: Generator, z) -> dict:
-    """B5a at the flagship coarse pass: the B1 phase's planes and points,
-    the seeded generator's decoder weights and the palette of its
-    latents; returns its row."""
+    """B5a at the flagship coarse pass (the B1 phase's planes and points,
+    the seeded generator's decoder weights and the palette of its latents)
+    and at `fused_cases`; returns its row."""
     started = time.perf_counter()
     with torch.no_grad():
         palette = gen.synthesize(gen.map(z)).attention_values
+    cases = fused_cases(gen)
     return fused_check(phase_planes(), coarse_coords(torch.device('cuda')),
                        gen, palette, triplane_cuda.FUSED_KERNEL,
-                       FUSED_TPU_KERNEL, started)
+                       FUSED_TPU_KERNEL, started, cases)
 
 
 def r512_phase(z, cam, focal, rows: dict) -> None:
@@ -804,15 +941,7 @@ def grad_cases(gen: torch.Generator) -> dict:
         return {'ms': time_cuda(fn, 10), 'device_ms': device_ms(fn)}
 
     r = GEN_KWARGS['img_resolution']
-    # 90% of the points outside the box on every axis they leave it on,
-    # from 1 to 3 box half-widths out, so they clamp onto the border
-    # texels and the corners; the rest inside.
-    n_pile = 1 << 20
-    u = torch.rand((BATCH, n_pile, 3), generator=gen, device=dev)
-    sign = torch.where(torch.rand((BATCH, n_pile, 3), generator=gen,
-                                  device=dev) < 0.5, -1.0, 1.0)
-    inside = torch.rand((BATCH, n_pile, 1), generator=gen, device=dev) < 0.1
-    pile = torch.where(inside, u * 2.0 - 1.0, sign * (1.0 + 2.0 * u))
+    pile = pile_up(gen, BATCH, 1 << 20)
     # Every combination of tile boundaries 16k / (R - 1), the last texel
     # (1.0) and the first (-1.0) over the three coordinates.
     ticks = torch.tensor([-1.0 + 2.0 * 16 * k / (r - 1)

@@ -2,23 +2,30 @@
 //
 // Replaces TPU kernel B1: `_resident_kernel` in
 // nerf_from_image_tpu/ops/pallas/triplane_window.py (reached through
-// `sample_windowed_raw` and `sample_triplane_windowed`). It computes the
-// function of that kernel, not its TPU mechanism: for each point at
-// normalized [-1, 1] coordinates (x, y, z), the mean over planes xy, xz and
-// yz of a bilinear sample (align_corners=True, border clamp), with the
-// first coordinate of each pair on the width axis. The TPU kernel's point
-// blocks, plane windows, one-hot matrix products and overflow fix-up have
-// no counterpart: a GPU gathers texels directly.
+// `sample_windowed_raw` and `sample_triplane_windowed`), and TPU kernel B6,
+// `_window_kernel` in the same file, which computes the same function for
+// planes too large for the TPU's VMEM. It computes their function, not
+// their TPU mechanism: for each point at normalized [-1, 1] coordinates
+// (x, y, z), the mean over planes xy, xz and yz of a bilinear sample
+// (align_corners=True, border clamp), with the first coordinate of each
+// pair on the width axis. The TPU kernels' point blocks, plane windows,
+// one-hot matrix products and overflow fix-up have no counterpart: a GPU
+// gathers texels directly, at any plane resolution.
 //
 // Layout. Planes are channel-last bf16, (B, 3, R, R, C) with C = 32, so one
 // texel is a C-vector of 64 bytes and a 2x2 tap is four such rows.
 // Coordinates are (B, N, 3) float32; the output is (B, N, C) bf16, in the
 // natural point order.
 //
-// Design. One warp per point and one lane per channel: the 12 tap loads of
-// a point are each one coalesced 64-byte row, the lanes compute the same
-// indices and weights redundantly, and the sum is float32, divided by 3 and
-// rounded once to the output type. Offsets are int64.
+// Design (`triplane_taps.cuh`). Four lanes a point, eight channels a lane:
+// each tap is one 16-byte load a lane, and the four lanes of a point
+// compute its indices and weights. A lane takes kPointsPerLane points an
+// iteration, so it has 12 x kPointsPerLane independent loads in flight,
+// and writes each point's 8 channels with one 16-byte store (a warp's
+// eight points are 512 contiguous bytes). The grid is persistent: as many
+// blocks as the card's SMs hold at once, walking the points with a grid
+// stride. The sums are float32 in the first design's order, divided by 3
+// and rounded once to bf16.
 //
 // Bound on this card. The kernel reads each point's 12 bytes of
 // coordinates, writes its C outputs (64 bytes in bf16) and reads the
@@ -26,99 +33,101 @@
 // flagship 8 x 3 x 256^2 x 32 bf16). It does 3 x 4 x 32 multiply-adds per
 // point, far below the card's rate for those bytes, so it is bound by
 // bytes: about 0.7 GB per flagship pass of 8.4M points, some 0.2 ms at
-// 3.35 TB/s. The taps themselves come mostly from L2, since neighbouring
-// points of a ray and neighbouring rays touch the same texels.
+// 3.35 TB/s. The taps themselves (768 bytes a point) come mostly from L1
+// and L2, since the samples of one ray share their xy taps and
+// neighbouring rays share texels: that traffic, not HBM's, is what the
+// wide loads and the loads in flight are for. What bounds this design is
+// instruction issue: some 56 warp instructions a point (the 96 unpacks
+// and 96 multiply-adds of a lane's 12 taps, the index arithmetic the four
+// lanes of a point repeat, the divisions by 3); points that all hit L1
+// take as long as the flagship pass. The grid-stride order keeps the
+// whole card on a narrow band of rays, which L2 holds: giving each block
+// its own contiguous run of points was slower.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "triplane_taps.cuh"
+
 namespace {
 
-constexpr int kChannels = 32;       // one lane per channel
-constexpr int kPointsPerBlock = 8;  // one warp per point
+using triplane_taps::kChannels;
+using triplane_taps::kLaneChannels;
+using triplane_taps::kLanesPerPoint;
+using triplane_taps::kPointsPerStep;
 
-__device__ __forceinline__ float load_texel(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPointsPerLane = 2;
+constexpr int kWarpPoints = kPointsPerStep * kPointsPerLane;  // 16
 
-// Bilinear sample of channel `lane` of one (R, R, C) plane at the pair
-// (a, b): a on the width (column) axis, b on the height (row) axis.
-__device__ __forceinline__ float sample_plane(
-    const __nv_bfloat16* __restrict__ plane, float a, float b, int r,
-    int lane) {
-  const float last = static_cast<float>(r - 1);
-  const float ix = fminf(fmaxf((a + 1.0f) * 0.5f * last, 0.0f), last);
-  const float iy = fminf(fmaxf((b + 1.0f) * 0.5f * last, 0.0f), last);
-  const float x0f = floorf(ix);
-  const float y0f = floorf(iy);
-  const float fx = ix - x0f;
-  const float fy = iy - y0f;
-  const int x0 = min(max(static_cast<int>(x0f), 0), r - 1);
-  const int y0 = min(max(static_cast<int>(y0f), 0), r - 1);
-  const int x1 = min(x0 + 1, r - 1);
-  const int y1 = min(y0 + 1, r - 1);
-
-  const __nv_bfloat16* row0 =
-      plane + static_cast<int64_t>(y0) * r * kChannels + lane;
-  const __nv_bfloat16* row1 =
-      plane + static_cast<int64_t>(y1) * r * kChannels + lane;
-  const float t00 = load_texel(row0 + static_cast<int64_t>(x0) * kChannels);
-  const float t01 = load_texel(row0 + static_cast<int64_t>(x1) * kChannels);
-  const float t10 = load_texel(row1 + static_cast<int64_t>(x0) * kChannels);
-  const float t11 = load_texel(row1 + static_cast<int64_t>(x1) * kChannels);
-  return (1.0f - fx) * (1.0f - fy) * t00 + fx * (1.0f - fy) * t01 +
-         (1.0f - fx) * fy * t10 + fx * fy * t11;
-}
-
-__global__ void __launch_bounds__(kChannels * kPointsPerBlock)
+__global__ void __launch_bounds__(kThreads)
     triplane_sample_kernel(const __nv_bfloat16* __restrict__ planes,
                            const float* __restrict__ coords,
                            __nv_bfloat16* __restrict__ out,
-                           int64_t points_per_image, int64_t total_points,
-                           int r) {
-  const int lane = threadIdx.x;
-  const int64_t point =
-      static_cast<int64_t>(blockIdx.x) * kPointsPerBlock + threadIdx.y;
-  if (point >= total_points) return;
-
-  const int64_t image = point / points_per_image;
-  const int64_t plane_size = static_cast<int64_t>(r) * r * kChannels;
-  const __nv_bfloat16* xy = planes + image * 3 * plane_size;
-  const __nv_bfloat16* xz = xy + plane_size;
-  const __nv_bfloat16* yz = xz + plane_size;
-
-  const float* c = coords + point * 3;
-  const float x = __ldg(c);
-  const float y = __ldg(c + 1);
-  const float z = __ldg(c + 2);
-
-  const float acc = sample_plane(xy, x, y, r, lane) +
-                    sample_plane(xz, x, z, r, lane) +
-                    sample_plane(yz, y, z, r, lane);
-  out[point * kChannels + lane] = __float2bfloat16(acc / 3.0f);
+                           int points_per_image, int total, int r) {
+  const int lane = threadIdx.x % 32;
+  const int slot = lane / kLanesPerPoint;
+  const int chunk = lane % kLanesPerPoint;
+  const int64_t warp = static_cast<int64_t>(blockIdx.x) * kWarps +
+                       threadIdx.x / 32;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps *
+                         kWarpPoints;
+  for (int64_t base = warp * kWarpPoints; base < total; base += stride) {
+    int point[kPointsPerLane];
+    bool valid[kPointsPerLane];
+#pragma unroll
+    for (int p = 0; p < kPointsPerLane; ++p) {
+      const int64_t mine = base + slot + p * kPointsPerStep;
+      valid[p] = mine < total;
+      point[p] = valid[p] ? static_cast<int>(mine) : total - 1;
+    }
+    uint4 feat[kPointsPerLane];
+    triplane_taps::sample_points<kPointsPerLane>(
+        planes, coords, point, points_per_image, r, chunk, feat);
+#pragma unroll
+    for (int p = 0; p < kPointsPerLane; ++p) {
+      if (valid[p]) {
+        *reinterpret_cast<uint4*>(out + static_cast<int64_t>(point[p]) *
+                                            kChannels +
+                                  chunk * kLaneChannels) = feat[p];
+      }
+    }
+  }
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Pointers are device pointers of
-// contiguous tensors: planes (B, 3, R, R, 32) bf16, coords (B, N, 3)
-// float32, out (B, N, 32) bf16. Launches on `stream` and returns the
-// launch's cudaError_t (0 on success); does not synchronise.
+// contiguous, 16-byte aligned tensors: planes (B, 3, R, R, 32) bf16,
+// coords (B, N, 3) float32, out (B, N, 32) bf16, with B * N and
+// 3 * R * R * 32 below 2^31 (the wrapper checks all of this). `sms` is the
+// card's SM count; the grid is that many times the blocks an SM holds at
+// once. Launches on `stream` and returns the launch's cudaError_t (0 on
+// success); does not synchronise.
 extern "C" int triplane_sample_bf16(const void* planes, const void* coords,
                                     void* out, int64_t batch,
                                     int64_t points_per_image, int r,
-                                    void* stream) {
+                                    int sms, void* stream) {
   const int64_t total = batch * points_per_image;
   if (total == 0) return 0;
-  const dim3 block(kChannels, kPointsPerBlock);
-  const dim3 grid(static_cast<unsigned int>(
-      (total + kPointsPerBlock - 1) / kPointsPerBlock));
-  triplane_sample_kernel<<<grid, block, 0,
+  static int blocks_per_sm = 0;
+  if (blocks_per_sm == 0) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks_per_sm, triplane_sample_kernel, kThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (blocks_per_sm < 1) blocks_per_sm = 1;
+  }
+  int64_t blocks = (total + kWarps * kWarpPoints - 1) /
+                   (kWarps * kWarpPoints);
+  const int64_t resident = static_cast<int64_t>(sms) * blocks_per_sm;
+  if (blocks > resident) blocks = resident;
+  triplane_sample_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(planes),
       static_cast<const float*>(coords), static_cast<__nv_bfloat16*>(out),
-      points_per_image, total, r);
+      static_cast<int>(points_per_image), static_cast<int>(total), r);
   return static_cast<int>(cudaGetLastError());
 }

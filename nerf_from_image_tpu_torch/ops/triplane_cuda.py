@@ -18,7 +18,11 @@ B5a, `_resident_kernel_fused` with `_decode_tail`, and B5b,
 `_window_kernel_fused` (the same function for planes too large for the
 TPU's VMEM): the sampler followed by the decoder MLP, the palette softmax
 and the palette product, forward only. `sample_triplane_fused` takes its
-plain version for CPU tensors and launches it for CUDA tensors.
+plain version for CPU tensors and launches it for CUDA tensors. The two
+forward kernels share their sampling core (`csrc/triplane_taps.cuh`: four
+lanes a point, one 16-byte load a tap), run a persistent grid sized from
+the card's SM count, and take 32-bit offsets within one image's planes
+(`check_forward_limits`).
 
 `launches`, `grad_launches`, `grad_planes_launches` and `fused_launches`
 count kernel launches, so a run can show that its path went through the
@@ -28,6 +32,7 @@ kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -43,10 +48,6 @@ CHANNELS = 32
 HIDDEN = 64  # the decoder's hidden units
 # Palette entries the fused kernel is built for: every reference dataset's.
 FUSED_VALUES = 10
-# Grid cap of the fused kernel: 16 blocks of 8 warps for each of the
-# H100's 132 SMs; each warp then walks over many tiles of points, so the
-# weights are staged in shared memory once per block.
-FUSED_MAX_BLOCKS = 132 * 16
 # The binned backward (B2): texel tiles of GRAD_TILE^2, bins cut into
 # chunks of at most GRAD_CHUNK (point, plane) entries, one block each; the
 # histogram keeps one image's 3 * tiles^2 counters in 48 KB of shared
@@ -65,7 +66,7 @@ fused_launches = 0
 _ARGTYPES = {
     (KERNEL, 'triplane_sample_bf16'):
         [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64,
-                                 ctypes.c_int, ctypes.c_void_p],
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     (GRAD_KERNEL, 'triplane_sample_grad_bf16'):
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     (GRAD_PLANES_KERNEL, 'triplane_sample_grad_planes_bf16'):
@@ -115,11 +116,40 @@ def _check_kernel_inputs(planes_cl: torch.Tensor,
                         f'{planes_cl.dtype}')
 
 
+def check_forward_limits(planes_cl: torch.Tensor,
+                         coords: torch.Tensor) -> None:
+    """Raises where the forward kernels (B1, B5a) would not hold these
+    inputs: their texel offsets are 32-bit within one image's three planes
+    (3 * R * R * 32 below 2^31), their point indices 32-bit (B * N below
+    2^31), and they read the planes with 16-byte loads (a view whose
+    storage offset leaves the planes off a 16-byte boundary is refused).
+    The outputs are fresh allocations, always aligned."""
+    b, _, r, _, c = planes_cl.shape
+    if 3 * r * r * c > MAX_INT32:
+        raise ValueError(f'the forward kernels take 3 * R * R * {c} below '
+                         f'2^31 texel channels an image, got R {r}')
+    if b * coords.shape[1] > MAX_INT32:
+        raise ValueError(f'the forward kernels take B * N below 2^31 '
+                         f'points, got B {b}, N {coords.shape[1]}')
+    if planes_cl.data_ptr() % 16:
+        raise ValueError('the forward kernels read the planes with 16-byte '
+                         'loads: they must start on a 16-byte boundary')
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA card `index`: the forward
+    kernels' persistent grids are this many times the blocks an SM holds
+    at once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def launch(planes_cl: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Runs the forward kernel: (B, 3, R, R, 32) bf16, (B, N, 3) f32 ->
     (B, N, 32) bf16."""
     global launches
     _check_kernel_inputs(planes_cl, coords)
+    check_forward_limits(planes_cl, coords)
     b, _, r, _, c = planes_cl.shape
     n = coords.shape[1]
     out = torch.empty((b, n, c), dtype=planes_cl.dtype,
@@ -128,7 +158,8 @@ def launch(planes_cl: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
         return out
     fn = _function(KERNEL, 'triplane_sample_bf16')
     err = cuda_build.call(fn, planes_cl, planes_cl.data_ptr(),
-                          coords.data_ptr(), out.data_ptr(), b, n, r)
+                          coords.data_ptr(), out.data_ptr(), b, n, r,
+                          sm_count(planes_cl.device.index))
     if err != 0:
         raise RuntimeError(f'{KERNEL} launch failed: cudaError {err}')
     launches += 1
@@ -296,6 +327,7 @@ def launch_fused(planes_cl: torch.Tensor, coords: torch.Tensor,
         raise ValueError(f'the fused kernel is built for {FUSED_VALUES} '
                          f'palette entries, got {k}')
     _check_kernel_inputs(planes_cl, coords)
+    check_forward_limits(planes_cl, coords)
     for t, dtype in ((w0, torch.bfloat16), (b0, torch.float32),
                      (w1, torch.bfloat16), (b1, torch.float32),
                      (palette, torch.bfloat16)):
@@ -312,7 +344,8 @@ def launch_fused(planes_cl: torch.Tensor, coords: torch.Tensor,
     err = cuda_build.call(fn, planes_cl, planes_cl.data_ptr(),
                           coords.data_ptr(), w0.data_ptr(), b0.data_ptr(),
                           w1.data_ptr(), b1.data_ptr(), palette.data_ptr(),
-                          out.data_ptr(), b, n, r, k, FUSED_MAX_BLOCKS)
+                          out.data_ptr(), b, n, r, k,
+                          sm_count(planes_cl.device.index))
     if err != 0:
         raise RuntimeError(f'{FUSED_KERNEL} launch failed: cudaError {err}')
     fused_launches += 1
