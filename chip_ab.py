@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Two trees of the port on one card, in turns: B1, B5a, the renders, B2,
-B3 forward and the inversion step.
+B4, B3 forward and backward, the inversion step and the G + D pair.
 
     python3 chip_ab.py PARENT_ROOT CHANGE_ROOT
 
@@ -21,16 +21,23 @@ root's kernels, and times, on the same seeded inputs:
 - B2 (`triplane_cuda.launch_grad_raw`) at the flagship coarse pass, at
   the inversion geometry and on a pile-up of points clamped outside the
   box;
+- B4 (`triplane_cuda.launch_grad_planes`) at the flagship coarse pass,
+  at the coarse pass of p3d_car training cameras and on the pile-up;
 - B3 forward (`warp.launch`) at the inversion's 8 images into 15 crops,
-  and `F.grid_sample` on the same crops;
+  and `F.grid_sample` on the same crops; B3's backward
+  (`warp.launch_grad`) on the same crops;
 - the full-width inversion step (`invert.optimizer.make_inversion_step`,
   as `chip_smoke.py`'s inversion phase builds it), host clock between
-  synchronisations.
+  synchronisations;
+- the full-width G + D pair in p3d_car's training configuration at
+  iteration 12,500 (`train.gan.g_step` then `d_step`, as `chip_smoke.py`'s
+  train phase builds them), host clock between synchronisations.
 
 The first parent turn and the first change turn keep their B1 and B5a
-outputs, and the summary gives, for each, the largest difference between
-parent and change: in value, in bf16 ulps of the output's largest
-magnitude, and in the count of values that differ. Kernel times are the median of CUDA-event times around single
+outputs and B4's flagship dplanes, and the summary gives, for each, the
+largest difference between parent and change: in value, in bf16 ulps of
+the output's largest magnitude, and in the count of values that
+differ. Kernel times are the median of CUDA-event times around single
 calls (per call) and the summed kernel durations of a torch.profiler
 trace over the calls (device). Prints the card's name and power limit,
 one JSON line per turn and a last summary line; exits non-zero without
@@ -88,7 +95,8 @@ def worker(root: str, save: str) -> dict:
     dev = torch.device('cuda')
     t0 = time.perf_counter()
     cuda_build.build([triplane_cuda.KERNEL, triplane_cuda.FUSED_KERNEL,
-                      triplane_cuda.GRAD_KERNEL, warp.KERNEL])
+                      triplane_cuda.GRAD_KERNEL,
+                      triplane_cuda.GRAD_PLANES_KERNEL, warp.KERNEL])
     build_s = time.perf_counter() - t0
 
     def coarse(cam, focal, scene_range):
@@ -108,6 +116,8 @@ def worker(root: str, save: str) -> dict:
                          device=dev).to(torch.bfloat16)
     cam, focal = smoke.camera(dev)
     inv_cam, inv_focal = smoke.p3d_cameras(np.random.default_rng(12), b, dev)
+    train_cam, train_focal = smoke.p3d_cameras(np.random.default_rng(13), b,
+                                               dev)
     n_pile = 1 << 20
     u = torch.rand((b, n_pile, 3), generator=gen, device=dev)
     sign = torch.where(torch.rand((b, n_pile, 3), generator=gen,
@@ -155,6 +165,24 @@ def worker(root: str, save: str) -> dict:
         outputs[f'B5a {name}'] = fused()
         b5a_times[name] = {'ms': smoke.time_cuda(fused, 20),
                            'device_ms': device_ms(fused)}
+    b4 = {}
+    b4_cases = {'coarse pass': cases['coarse pass'],
+                'training geometry': coarse(
+                    train_cam, train_focal, smoke.TRAIN_CFG.scene_range),
+                'pile-up': cases['pile-up']}
+    for name, coords in b4_cases.items():
+        grad_out = torch.randn((b, coords.shape[1], c), generator=gen,
+                               device=dev).to(torch.bfloat16)
+
+        def grad_planes(coords=coords, grad_out=grad_out):
+            return triplane_cuda.launch_grad_planes(planes.shape, coords,
+                                                    grad_out)
+
+        if name == 'coarse pass':
+            outputs['B4 coarse pass'] = grad_planes()
+        b4[name] = {'ms': smoke.time_cuda(grad_planes, 10),
+                    'device_ms': device_ms(grad_planes)}
+        del grad_out
     if save:
         torch.save({k: v.cpu() for k, v in outputs.items()}, save)
     del outputs, planes_512
@@ -198,10 +226,18 @@ def worker(root: str, save: str) -> dict:
     def kernel():
         return warp.launch(images, grid)
 
+    cotangent = torch.randn((b, n_aug, 3, smoke.RES, smoke.RES),
+                            generator=gen, device=dev)
+
+    def kernel_grad():
+        return warp.launch_grad(cotangent, grid, images.shape)
+
     b3 = {'ms': smoke.time_cuda(kernel, 50),
           'device_ms': device_ms(kernel, 50),
           'library_ms': smoke.time_cuda(library, 50),
-          'library_device_ms': device_ms(library, 50)}
+          'library_device_ms': device_ms(library, 50),
+          'grad_ms': smoke.time_cuda(kernel_grad, 50),
+          'grad_device_ms': device_ms(kernel_grad, 50)}
 
     gen_model, lpips = smoke.inversion_models()
     target, _, gt_cam, init = smoke.inversion_problem(gen_model)
@@ -216,10 +252,63 @@ def worker(root: str, save: str) -> dict:
         step(params, optimizer, target, step_gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
+    del gen_model, lpips, target, params, optimizer, step
+    torch.cuda.empty_cache()
     return {'root': root, 'build_s': build_s, 'b1': b1_times,
-            'b5a': b5a_times, 'renders': renders, 'b2': b2, 'b3_forward': b3,
-            'step_ms': statistics.median(times[1:]),
-            'step_ms_all': times[1:]}
+            'b5a': b5a_times, 'renders': renders, 'b2': b2, 'b4': b4,
+            'b3': b3, 'step_ms': statistics.median(times[1:]),
+            'step_ms_all': times[1:], **train_pairs(smoke, dev)}
+
+
+def train_pairs(smoke, dev) -> dict:
+    """Host ms of G + D pairs at full width in p3d_car's training
+    configuration at iteration 12,500, as `chip_smoke.py`'s train phase
+    builds them: one warm-up pair, then TRAIN_PAIRS timed pairs."""
+    import numpy as np
+    import torch
+
+    from nerf_from_image_tpu_torch.render.renderer import render
+    from nerf_from_image_tpu_torch.train import gan
+
+    cfg, b = smoke.TRAIN_CFG, smoke.BATCH
+    state = gan.init_train_state(cfg, dtype=torch.bfloat16, device=dev,
+                                 seed=0)
+    state.iteration = smoke.TRAIN_ITERATION
+    state.augment_p = smoke.TRAIN_AUGMENT_P
+    for opt in (state.opt_g, state.opt_d):
+        opt.param_groups[0]['count'] = smoke.TRAIN_ITERATION // 2
+    rng = np.random.default_rng(7)
+
+    def batch():
+        cam, focal = smoke.p3d_cameras(rng, b, dev)
+        z = torch.from_numpy(rng.standard_normal(
+            (b, cfg.latent_dim)).astype(np.float32)).to(dev)
+        return {'z': z, 'pose': cam, 'focal': focal}
+
+    with torch.no_grad():
+        source = batch()
+        st = state.gen.synthesize(state.gen.map(source['z']))
+        out = render(lambda pts, req: state.gen.sample(st, pts, req),
+                     2 * smoke.RES, 2 * smoke.RES, source['pose'],
+                     source['focal'], cfg.scene_range, cfg.white_background,
+                     smoke.SAMPLES)
+        hi = torch.cat((out.rgb, out.mask[..., None]), dim=-1)
+        real = {'image_highres': hi,
+                'image': hi.reshape(b, smoke.RES, 2, smoke.RES, 2,
+                                    4).mean((2, 4)),
+                'pose': source['pose'], 'focal': source['focal']}
+        del st, out
+    pairs = []
+    for _ in range(smoke.TRAIN_PAIRS + 1):
+        g_batch, fake = batch(), batch()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gan.g_step(state, g_batch, cfg)
+        gan.d_step(state, real, fake, cfg)
+        torch.cuda.synchronize()
+        pairs.append((time.perf_counter() - t) * 1e3)
+    return {'pair_ms': statistics.median(pairs[1:]),
+            'pair_ms_all': pairs[1:]}
 
 
 def output_differences(parent: str, change: str) -> dict:
@@ -294,14 +383,16 @@ def main() -> None:
                       for k in mine[0]['b2']},
             'b2_device_ms': {k: [r['b2'][k]['device_ms'] for r in mine]
                              for k in mine[0]['b2']},
-            'b3_forward_ms': [r['b3_forward']['ms'] for r in mine],
-            'b3_forward_device_ms': [r['b3_forward']['device_ms']
-                                     for r in mine],
-            'grid_sample_ms': [r['b3_forward']['library_ms'] for r in mine],
-            'grid_sample_device_ms': [r['b3_forward']['library_device_ms']
-                                      for r in mine],
+            'b4_ms': {k: [r['b4'][k]['ms'] for r in mine]
+                      for k in mine[0]['b4']},
+            'b4_device_ms': {k: [r['b4'][k]['device_ms'] for r in mine]
+                             for k in mine[0]['b4']},
+            **{f'b3_{key}': [r['b3'][key] for r in mine]
+               for key in mine[0]['b3']},
             'step_ms': [r['step_ms'] for r in mine],
-            'step_ms_all': [r['step_ms_all'] for r in mine]}
+            'step_ms_all': [r['step_ms_all'] for r in mine],
+            'pair_ms': [r['pair_ms'] for r in mine],
+            'pair_ms_all': [r['pair_ms_all'] for r in mine]}
     print(json.dumps({'summary': summary}), flush=True)
 
 

@@ -39,10 +39,12 @@ Phases, each printed as one JSON line:
              points, R = 40 and R = 512, B5a with its special-function
              floor (sfu_ms) and B1's time on its points beside it; B2 also
              on one inversion geometry, a pile-up of clamped points, tile
-             boundaries, a ragged N and 512^2 planes, and B3's forward on
-             crops outside the image at an odd size; for B1, B2, B3's
-             forward and B5a, device time (profiler) beside the time a
-             call takes
+             boundaries, a ragged N and 512^2 planes; B4 also on p3d_car
+             training cameras, a pile-up, tile boundaries, a ragged N with
+             B = 3 and 512^2 planes; B3 forward and backward on crops
+             outside the image at an odd size, the backward also on a
+             scattered grid and 6 channels; for every kernel, device time
+             (profiler) beside the time a call takes
   model      the full-width generator is built
   slice      map -> synthesize -> render through the kernels (launch counts
              reset just before and read just after), output checks, the same
@@ -919,6 +921,18 @@ def grad_case(what: str, planes_cl: torch.Tensor, coords: torch.Tensor,
             'max_abs_err': max_err}
 
 
+def tile_boundaries(b: int) -> torch.Tensor:
+    """(b, 4913, 3) points: every combination of the 16-texel tile
+    boundaries 16k / (R - 1), the last texel (1.0) and the first (-1.0)
+    over the three coordinates, at the flagship's R."""
+    r = GEN_KWARGS['img_resolution']
+    ticks = torch.tensor([-1.0 + 2.0 * 16 * k / (r - 1)
+                          for k in range(r // 16)] + [1.0], device='cuda')
+    grid = torch.stack(torch.meshgrid(ticks, ticks, ticks, indexing='ij'),
+                       dim=-1).reshape(1, -1, 3)
+    return grid.expand(b, -1, -1).contiguous()
+
+
 def grad_cases(gen: torch.Generator) -> dict:
     """B2's further cases, each against its plain version, with the
     per-call and device times of the ones the inversion and its worst
@@ -940,15 +954,7 @@ def grad_cases(gen: torch.Generator) -> dict:
         fn = lambda: triplane_cuda.launch_grad_raw(*args)  # noqa: E731
         return {'ms': time_cuda(fn, 10), 'device_ms': device_ms(fn)}
 
-    r = GEN_KWARGS['img_resolution']
     pile = pile_up(gen, BATCH, 1 << 20)
-    # Every combination of tile boundaries 16k / (R - 1), the last texel
-    # (1.0) and the first (-1.0) over the three coordinates.
-    ticks = torch.tensor([-1.0 + 2.0 * 16 * k / (r - 1)
-                          for k in range(r // 16)] + [1.0], device=dev)
-    grid = torch.stack(torch.meshgrid(ticks, ticks, ticks, indexing='ij'),
-                       dim=-1).reshape(1, -1, 3)
-    boundaries = grid.expand(2, -1, -1)
     ragged = torch.rand((BATCH, 100003, 3), generator=gen,
                         device=dev) * 2.4 - 1.2
 
@@ -960,7 +966,7 @@ def grad_cases(gen: torch.Generator) -> dict:
     cases['pile-up'] = {**grad_case('pile-up', *args), **timed(args)}
     del args
     cases['tile boundaries'] = grad_case('tile boundaries',
-                                         *inputs(boundaries))
+                                         *inputs(tile_boundaries(2)))
     cases['ragged N'] = grad_case('ragged N', *inputs(ragged))
     args = inputs(coarse_coords(dev), R512)
     cases['512 planes'] = {**grad_case('512 planes', *args), **timed(args)}
@@ -1037,9 +1043,66 @@ def triplane_grad_phase() -> dict:
                max_err, ms, plain_ms, library_ms, b)
 
 
+def grad_planes_case(what: str, coords: torch.Tensor,
+                     grad_out: torch.Tensor, r: int) -> dict:
+    """B4 against its plain version at GRAD_RTOL of the largest value, on
+    planes of resolution r; returns the errors."""
+    shape = (coords.shape[0], 3, r, r, triplane_cuda.CHANNELS)
+    dplanes = triplane_cuda.launch_grad_planes(shape, coords, grad_out)
+    torch.cuda.synchronize()
+    ref = triplane.sample_triplane_grad_planes_plain(shape, coords, grad_out)
+    err = rel_max(dplanes, ref)
+    if err > GRAD_RTOL or not torch.isfinite(dplanes).all():
+        raise AssertionError(f'planes-only grad kernel disagrees with its '
+                             f'plain version ({what}): {err} (relative to '
+                             f'the largest)')
+    return {'batch': coords.shape[0], 'points': coords.shape[1],
+            'plane_resolution': r, 'plain_rel_err': err,
+            'max_abs_err': float((dplanes - ref).abs().max())}
+
+
+def grad_planes_cases(gen: torch.Generator) -> dict:
+    """B4's further cases, each against its plain version, with the
+    per-call and device times of the ones a G step and its worst case
+    give: the coarse pass of p3d_car training cameras (the G step's
+    geometry); a pile-up of points clamped outside the box; points exactly
+    on 16-texel tile boundaries and on the last texel; a ragged N with
+    B = 3; and 512^2 planes."""
+    dev = torch.device('cuda')
+    r = GEN_KWARGS['img_resolution']
+
+    def grad(coords):
+        return torch.randn((*coords.shape[:2], triplane_cuda.CHANNELS),
+                           generator=gen, device=dev).to(torch.bfloat16)
+
+    def timed(coords, grad_out, r):
+        shape = (coords.shape[0], 3, r, r, triplane_cuda.CHANNELS)
+        fn = lambda: triplane_cuda.launch_grad_planes(  # noqa: E731
+            shape, coords, grad_out)
+        return {'ms': time_cuda(fn, 10), 'device_ms': device_ms(fn)}
+
+    cam, focal = p3d_cameras(np.random.default_rng(13), BATCH, dev)
+    cases = {}
+    for what, coords, res, time_it in (
+            ('training geometry',
+             coarse_coords(dev, cam, focal, TRAIN_CFG.scene_range), r, True),
+            ('pile-up', pile_up(gen, BATCH, 1 << 20), r, True),
+            ('tile boundaries', tile_boundaries(2), r, False),
+            ('ragged N', torch.rand((3, 100003, 3), generator=gen,
+                                    device=dev) * 2.4 - 1.2, r, False),
+            ('512 planes', coarse_coords(dev), R512, True)):
+        coords = coords.contiguous()
+        grad_out = grad(coords)
+        cases[what] = grad_planes_case(what, coords, grad_out, res)
+        if time_it:
+            cases[what].update(timed(coords, grad_out, res))
+    return cases
+
+
 def triplane_grad_planes_phase() -> dict:
     """B4 against its plain version and against B2's dplanes, on the points
-    and cotangent of the B2 phase; returns its row."""
+    and cotangent of the B2 phase, then on the further cases of
+    `grad_planes_cases`; returns its row."""
     started = time.perf_counter()
     dev = torch.device('cuda')
     coords = coarse_coords(dev)
@@ -1069,8 +1132,11 @@ def triplane_grad_planes_phase() -> dict:
                              f'plain version {err_plain}, with B2 {err_b2} '
                              f'(relative to the largest)')
 
-    ms = time_cuda(lambda: triplane_cuda.launch_grad_planes(shape, coords,
-                                                            grad_out), 10)
+    def call():
+        return triplane_cuda.launch_grad_planes(shape, coords, grad_out)
+
+    ms = time_cuda(call, 10)
+    dev_ms = device_ms(call)
     plain_ms = time_cuda(lambda: triplane.sample_triplane_grad_planes_plain(
         shape, coords, grad_out), 3, 1)
 
@@ -1087,8 +1153,13 @@ def triplane_grad_planes_phase() -> dict:
                           padding_mode='border', align_corners=True)
     feats = feats.reshape(BATCH, 3, c, n).mean(dim=1)
     cotangent = grad_out.float().transpose(1, 2)
-    library_ms = time_cuda(lambda: torch.autograd.grad(
-        feats, planes_cf, cotangent, retain_graph=True), 5)
+
+    def library():
+        return torch.autograd.grad(feats, planes_cf, cotangent,
+                                   retain_graph=True)
+
+    library_ms = time_cuda(library, 5)
+    library_device_ms = device_ms(library, 3)
     del feats, planes_cf, grid, cotangent
 
     points = BATCH * n
@@ -1100,19 +1171,45 @@ def triplane_grad_planes_phase() -> dict:
     # weights themselves are per point and plane.
     flops = points * 3 * c * 16
     b = bound(bytes_moved, flops)
+    del planes_cl, coords, grad_out, dplanes
+    cases = grad_planes_cases(gen)
     emit('kernel', started, name=triplane_cuda.GRAD_PLANES_KERNEL,
          points=points, plain_rel_err=err_plain, b2_rel_err=err_b2,
-         max_abs_err=max_err, rtol=GRAD_RTOL, ms=ms, plain_ms=plain_ms,
-         library_ms=library_ms, **b)
+         max_abs_err=max_err, rtol=GRAD_RTOL, ms=ms, device_ms=dev_ms,
+         plain_ms=plain_ms, library_ms=library_ms,
+         library_device_ms=library_device_ms,
+         chunk=triplane_cuda.GRAD_CHUNK, cases=cases, **b)
     return row(triplane_cuda.GRAD_PLANES_KERNEL, GRAD_PLANES_SOURCE,
                GRAD_PLANES_TPU_KERNEL, max_err, ms, plain_ms, library_ms, b)
 
 
+def warp_grad_case(what: str, images: torch.Tensor,
+                   grid: torch.Tensor, gen: torch.Generator) -> dict:
+    """B3's backward against the plain version's autograd at
+    WARP_GRAD_RTOL of the largest value, on a seeded cotangent."""
+    grad_out = torch.randn((*grid.shape[:2], images.shape[1],
+                            *grid.shape[2:4]), generator=gen,
+                           device=images.device)
+    dimages = warp.launch_grad(grad_out, grid, images.shape)
+    torch.cuda.synchronize()
+    leaf = images.clone().requires_grad_()
+    ref, = torch.autograd.grad(warp.warp_plain(leaf, grid), leaf, grad_out)
+    err = rel_max(dimages, ref)
+    if err > WARP_GRAD_RTOL or not torch.isfinite(dimages).all():
+        raise AssertionError(f'warp backward disagrees with its plain '
+                             f'version ({what}): {err} (relative to the '
+                             f'largest)')
+    return {'channels': images.shape[1], 'grad_rel_err': err,
+            'grad_max_abs_err': float((dimages - ref).abs().max())}
+
+
 def warp_cases(gen: torch.Generator) -> dict:
-    """B3 forward against its plain version at WARP_ATOL on crops that
-    reach far outside the image (zeros padding), at the inversion's 128^2
-    and at 127^2, whose pixel count is not a multiple of 4 (the kernel's
-    one-pixel-at-a-time path)."""
+    """B3 forward (WARP_ATOL) and backward (WARP_GRAD_RTOL) against their
+    plain versions on crops that reach far outside the image (zeros
+    padding), at the inversion's 128^2 and at 127^2, whose pixel count is
+    not a multiple of 4 (the forward's one-pixel-at-a-time path); the
+    backward also on a grid of points scattered at random (no crop at
+    all) and with 6 channels (two float4 atomics a tap)."""
     dev = torch.device('cuda')
     n_aug = INV_CFG.num_augmentations
     images = torch.rand((BATCH, 3, RES, RES), generator=gen,
@@ -1136,9 +1233,18 @@ def warp_cases(gen: torch.Generator) -> dict:
             raise AssertionError(f'warp forward disagrees with its plain '
                                  f'version on crops outside the image at '
                                  f'{size}^2: {err}')
-        cases[f'outside {size}'] = {'max_abs_err': err,
-                                    'zero_share': float((ref == 0).float()
-                                                        .mean())}
+        cases[f'outside {size}'] = {
+            'max_abs_err': err,
+            'zero_share': float((ref == 0).float().mean()),
+            **warp_grad_case(f'outside {size}', images, grid, gen)}
+    scattered = (torch.rand((BATCH, n_aug, RES, RES, 2), generator=gen,
+                            device=dev) * 2.4 - 1.2)
+    cases['scattered'] = warp_grad_case('scattered', images, scattered, gen)
+    grid = augment.image_warp_grid(tform, RES, RES).reshape(
+        BATCH, n_aug, RES, RES, 2).contiguous()
+    six = torch.rand((BATCH, warp.MAX_CHANNELS, RES, RES), generator=gen,
+                     device=dev)
+    cases['6 channels'] = warp_grad_case('6 channels', six, grid, gen)
     return cases
 
 
@@ -1177,6 +1283,8 @@ def warp_phase() -> list:
     dev_ms = device_ms(lambda: warp.launch(images, grid), 20)
     grad_ms = time_cuda(lambda: warp.launch_grad(grad_out, grid,
                                                  images.shape), 20)
+    grad_dev_ms = device_ms(lambda: warp.launch_grad(grad_out, grid,
+                                                     images.shape), 20)
     plain_ms = time_cuda(lambda: warp.warp_plain(images, grid), 10)
     plain_grad_ms = time_cuda(lambda: torch.autograd.grad(
         plain_out, leaf, grad_out, retain_graph=True), 10)
@@ -1194,8 +1302,11 @@ def warp_phase() -> list:
     library_device_ms = device_ms(library, 20)
     lib_out = library()
     lib_cot = grad_out.reshape(BATCH * n_aug, 3, RES, RES)
-    library_grad_ms = time_cuda(lambda: torch.autograd.grad(
-        lib_out, rep, lib_cot, retain_graph=True), 20)
+    def library_grad():
+        return torch.autograd.grad(lib_out, rep, lib_cot, retain_graph=True)
+
+    library_grad_ms = time_cuda(library_grad, 20)
+    library_grad_device_ms = device_ms(library_grad, 20)
 
     pixels = BATCH * n_aug * RES * RES
     img_bytes = images.numel() * 4
@@ -1213,7 +1324,10 @@ def warp_phase() -> list:
          library_device_ms=library_device_ms, cases=cases, **fwd_b)
     emit('kernel', started, name='warp_backward', pixels=pixels,
          max_abs_err=bwd_err, rel_err=bwd_rel, rtol=WARP_GRAD_RTOL,
-         ms=grad_ms, plain_ms=plain_grad_ms, library_ms=library_grad_ms,
+         ms=grad_ms, device_ms=grad_dev_ms, plain_ms=plain_grad_ms,
+         library_ms=library_grad_ms,
+         library_device_ms=library_grad_device_ms,
+         cases={k: v for k, v in cases.items() if 'grad_rel_err' in v},
          **bwd_b)
     return [row('warp_forward', WARP_SOURCE, WARP_TPU_KERNEL, fwd_err, ms,
                 plain_ms, library_ms, fwd_b),

@@ -8,30 +8,39 @@
 // badly. Here the function gets kernels of its own: a bilinear sample with
 // zeros padding and align_corners=False (the semantics of
 // `core.augment._grid_sample_zeros`), computed in float32. The grid is
-// data (sampled transforms), so the backward goes to the image only.
+// data (sampled transforms), so the backward goes to the image only, and
+// neither direction assumes anything of it: any scale, rotation or shear,
+// crops partly or wholly outside the image, or points in no order at all.
 //
 // Layout. images (B, C, H, W) float32; grid (B, N, H', W', 2) float32 xy
 // in [-1, 1], N crops per image; out (B, N, C, H', W') float32. The
-// backward takes grad_out of the output's shape and adds into
-// dimages (B, C, H, W) float32, zeroed by the caller.
+// backward takes grad_out of the output's shape and writes dimages
+// (B, C, H, W) float32 whole. 32-bit offsets: the wrapper raises for any
+// tensor of 2^31 elements or more, and for more than 65,535 crops (a grid
+// row each); C is at most 8 (the wrapper takes 6). No other size limit.
 //
 // Design of the forward. The first design (one thread per output pixel
 // in a 1-D grid over all crops, two 64-bit divisions per thread) took
 // 0.063-0.077 ms a call at the inversion's shapes (NVIDIA H100 80GB HBM3,
 // 700 W), slower than F.grid_sample's 0.059 ms, against a 12 us bound.
 // Now a 2-D grid, blockIdx.y the crop, so a thread finds its image with
-// one 32-bit division of a block index; 32-bit offsets (the wrapper raises
-// for any size from 2^31 up); and each warp an 8 x 4 patch of pixels
-// rather than 32 pixels of a row, so that a warp's gathers, which follow
-// the crop's rotation through the image, touch fewer cache lines. Tried
-// on the card and slower: 4 or 8 pixels a thread (as a row of 4 read with
-// float4 grid loads and written with 16-byte stores, or down a column).
+// one 32-bit division of a block index; 32-bit offsets; and each warp an
+// 8 x 4 patch of pixels rather than 32 pixels of a row, so that a warp's
+// gathers, which follow the crop's rotation through the image, touch fewer
+// cache lines. Tried on the card and slower: 4 or 8 pixels a thread (as a
+// row of 4 read with float4 grid loads and written with 16-byte stores, or
+// down a column).
 //
-// Backward. One thread per output pixel, looping over the channels: the
-// four tap offsets and weights are computed once per pixel, and the
-// backward scatters with float32 atomicAdd, since crops overlap in the
-// image; the order of the adds, and so the last bits of the sums, changes
-// from run to run.
+// Design of the backward. The first design (one thread per output pixel,
+// 3 channels x 4 taps of scalar float32 atomicAdd straight into dimages)
+// took 0.275 ms a call at the inversion's shapes: 23.6M reductions onto
+// 393K addresses, 60 on each from 15 overlapping crops, serialised in L2.
+// Now one thread per output pixel computes its taps once and adds all
+// channels of a tap with one float4 atomicAdd (sm_90's vector float add)
+// into a channel-last (B, H, W, 4) float32 scratch, 4 reductions a pixel
+// in place of 12 (two float4s a tap for 5 to 8 channels); one more kernel
+// writes the scratch out as (B, C, H, W). The order of the adds, and so
+// the last bits of the sums, changes from run to run.
 //
 // Bound on this card. At the inversion's 8 images of 3 x 128^2 into 15
 // crops the forward reads 1.6 MB of images and 15.7 MB of grid and writes
@@ -117,43 +126,91 @@ __global__ void __launch_bounds__(kForwardThreads)
   }
 }
 
+// Grid (ceil(H' * W' / kThreads), B * N): one thread per output pixel of
+// one crop. The taps are computed once and each adds its weighted
+// cotangents of all channels into the channel-last scratch, kSlots float4
+// atomics a tap.
+template <int kSlots>
 __global__ void __launch_bounds__(kThreads)
     warp_backward_kernel(const float* __restrict__ grad_out,
                          const float* __restrict__ grid,
-                         float* __restrict__ dimages, int64_t total,
-                         int crops, int channels, int ih, int iw,
-                         int64_t out_pixels) {
-  const int64_t pixel = static_cast<int64_t>(blockIdx.x) * kThreads +
-                        threadIdx.x;
-  if (pixel >= total) return;
-  const int64_t crop = pixel / out_pixels;
-  const int64_t p = pixel - crop * out_pixels;
-  const int64_t image = crop / crops;
-  const Taps t = make_taps(__ldg(grid + 2 * pixel),
-                           __ldg(grid + 2 * pixel + 1), ih, iw);
-  const int64_t image_size = static_cast<int64_t>(ih) * iw;
-  float* dst = dimages + image * channels * image_size;
+                         float4* __restrict__ scratch, int crops,
+                         int channels, int ih, int iw, int out_pixels) {
+  const int crop = blockIdx.y;  // b * N + n
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= out_pixels) return;
+  const float2 xy = __ldg(reinterpret_cast<const float2*>(grid) +
+                          crop * out_pixels + p);
+  const Taps t = make_taps(xy.x, xy.y, ih, iw);
   const float* src = grad_out + crop * channels * out_pixels + p;
-  for (int c = 0; c < channels; ++c) {
-    const float g = __ldg(src + c * out_pixels);
-    float* plane = dst + c * image_size;
+  float g[4 * kSlots];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (t.weight[k] != 0.0f) atomicAdd(plane + t.offset[k], t.weight[k] * g);
+  for (int c = 0; c < 4 * kSlots; ++c) {
+    g[c] = c < channels ? __ldg(src + c * out_pixels) : 0.0f;
+  }
+  float4* dst = scratch + (crop / crops) * ih * iw * kSlots;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float w = t.weight[k];
+    if (w == 0.0f) continue;
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      atomicAdd(dst + t.offset[k] * kSlots + q,
+                make_float4(w * g[4 * q], w * g[4 * q + 1],
+                            w * g[4 * q + 2], w * g[4 * q + 3]));
     }
   }
 }
 
-unsigned int blocks(int64_t total) {
-  return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
+// The channel-last scratch (B, H, W, 4 * kSlots) out as dimages (B, C, H,
+// W): one thread per texel, every element of dimages written.
+template <int kSlots>
+__global__ void __launch_bounds__(kThreads)
+    channels_first_kernel(const float4* __restrict__ scratch,
+                          float* __restrict__ dimages, int channels,
+                          int image_size, int texels) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= texels) return;
+  const int b = i / image_size, t = i - b * image_size;
+  float* dst = dimages + b * channels * image_size + t;
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) {
+    const float4 v = scratch[i * kSlots + q];
+    const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (4 * q + j < channels) dst[(4 * q + j) * image_size] = vs[j];
+    }
+  }
+}
+
+template <int kSlots>
+cudaError_t backward(const float* grad_out, const float* grid,
+                     float* dimages, float4* scratch, int batch, int crops,
+                     int channels, int ih, int iw, int out_pixels,
+                     cudaStream_t s) {
+  const int texels = batch * ih * iw;
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, sizeof(float4) * kSlots * static_cast<size_t>(texels), s);
+  if (err != cudaSuccess) return err;
+  if (crops > 0 && out_pixels > 0) {
+    const dim3 blocks((out_pixels + kThreads - 1) / kThreads, batch * crops);
+    warp_backward_kernel<kSlots><<<blocks, kThreads, 0, s>>>(
+        grad_out, grid, scratch, crops, channels, ih, iw, out_pixels);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  channels_first_kernel<kSlots>
+      <<<(texels + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+          scratch, dimages, channels, ih * iw, texels);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Pointers are device pointers of
 // contiguous float32 tensors: images (B, C, H, W), grid (B, N, H', W', 2),
-// out (B, N, C, H', W'). Launch on `stream` and return the launch's
-// cudaError_t (0 on success); neither synchronises.
+// out (B, N, C, H', W'). Launch on `stream` and return the first
+// launch's cudaError_t (0 on success); neither synchronises.
 extern "C" int warp_forward_f32(const void* images, const void* grid,
                                 void* out, int64_t batch, int crops,
                                 int channels, int ih, int iw, int oh, int ow,
@@ -170,18 +227,23 @@ extern "C" int warp_forward_f32(const void* images, const void* grid,
 }
 
 // grad_out (B, N, C, H', W'), grid (B, N, H', W', 2), dimages (B, C, H, W)
-// zeroed by the caller.
+// (written whole), scratch (B, H, W, 4 * ceil(C / 4)) float32 (zeroed
+// here); C at most 8. Runs a memset and two kernels.
 extern "C" int warp_backward_f32(const void* grad_out, const void* grid,
-                                 void* dimages, int64_t batch, int crops,
-                                 int channels, int ih, int iw, int oh,
-                                 int ow, void* stream) {
-  const int64_t out_pixels = static_cast<int64_t>(oh) * ow;
-  const int64_t total = batch * crops * out_pixels;
-  if (total == 0) return 0;
-  warp_backward_kernel<<<blocks(total), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(grad_out), static_cast<const float*>(grid),
-      static_cast<float*>(dimages), total, crops, channels, ih, iw,
-      out_pixels);
-  return static_cast<int>(cudaGetLastError());
+                                 void* dimages, void* scratch, int batch,
+                                 int crops, int channels, int ih, int iw,
+                                 int oh, int ow, void* stream) {
+  if (batch * ih * iw == 0) return 0;
+  if (channels < 1 || channels > 8) return cudaErrorInvalidValue;
+  const float* g = static_cast<const float*>(grad_out);
+  const float* xy = static_cast<const float*>(grid);
+  float* d = static_cast<float*>(dimages);
+  float4* acc = static_cast<float4*>(scratch);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      channels <= 4
+          ? backward<1>(g, xy, d, acc, batch, crops, channels, ih, iw,
+                        oh * ow, s)
+          : backward<2>(g, xy, d, acc, batch, crops, channels, ih, iw,
+                        oh * ow, s));
 }

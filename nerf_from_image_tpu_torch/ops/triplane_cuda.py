@@ -8,7 +8,8 @@ B2, `_resident_grad_kernel` in the same file, and gives the gradients of
 the planes and of the coordinates; the planes-only backward kernel
 (`csrc/triplane_sample_grad_planes.cu`) replaces TPU kernel B4,
 `_resident_grad_planes_kernel`, and runs when the coordinates need no
-gradient (the GAN train steps, whose poses are data). `sample_triplane`
+gradient (the GAN train steps, whose poses are data); the two backwards
+share the tile binning of `csrc/triplane_bins.cuh`. `sample_triplane`
 runs them through one `autograd.Function` (`ops.triplane.TriplaneSample`):
 for tensors that lie on the CPU it takes the plain versions
 (`ops/triplane.py`); for CUDA tensors it launches the kernels or raises.
@@ -48,7 +49,7 @@ CHANNELS = 32
 HIDDEN = 64  # the decoder's hidden units
 # Palette entries the fused kernel is built for: every reference dataset's.
 FUSED_VALUES = 10
-# The binned backward (B2): texel tiles of GRAD_TILE^2, bins cut into
+# The binned backwards (B2, B4): texel tiles of GRAD_TILE^2, bins cut into
 # chunks of at most GRAD_CHUNK (point, plane) entries, one block each; the
 # histogram keeps one image's 3 * tiles^2 counters in 48 KB of shared
 # memory, so R <= GRAD_MAX_TILES * GRAD_TILE.
@@ -70,8 +71,7 @@ _ARGTYPES = {
     (GRAD_KERNEL, 'triplane_sample_grad_bf16'):
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     (GRAD_PLANES_KERNEL, 'triplane_sample_grad_planes_bf16'):
-        [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64,
-                                 ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     (FUSED_KERNEL, 'triplane_sample_fused_bf16'):
         [ctypes.c_void_p] * 8 + [ctypes.c_int64, ctypes.c_int64,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -167,9 +167,9 @@ def launch(planes_cl: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
 
 
 def grad_scratch_sizes(batch: int, n: int, r: int) -> Tuple[int, int]:
-    """(bins, most work items) of the binned backward at B = batch, N = n
-    and R = r; raises where the kernel's int32 indices or its shared
-    histogram would not hold them."""
+    """(bins, most work items) of the binned backwards (B2, B4) at
+    B = batch, N = n and R = r; raises where the kernels' int32 indices or
+    their shared histogram would not hold them."""
     tiles = -(-r // GRAD_TILE)
     entries = 3 * batch * n
     planes = batch * 3 * r * r * CHANNELS
@@ -182,6 +182,18 @@ def grad_scratch_sizes(batch: int, n: int, r: int) -> Tuple[int, int]:
                          f'values, got B {batch}, N {n}, R {r}')
     bins = batch * 3 * tiles * tiles
     return bins, bins + entries // GRAD_CHUNK + 1
+
+
+def _bin_scratch(b: int, n: int, r: int, dev: torch.device):
+    """The binning's scratch for B = b, N = n, R = r on `dev`: the bin
+    counts, the work items, the work item count and the entries, then the
+    number of work items the grid is sized for."""
+    bins, max_work = grad_scratch_sizes(b, n, r)
+    return (torch.empty(bins, dtype=torch.int32, device=dev),
+            torch.empty((max_work, 2), dtype=torch.int32, device=dev),
+            torch.empty(1, dtype=torch.int32, device=dev),
+            torch.empty((3 * b * n, 4), dtype=torch.int32, device=dev),
+            max_work)
 
 
 def launch_grad_raw(planes_cl: torch.Tensor, coords: torch.Tensor,
@@ -212,12 +224,8 @@ def launch_grad_raw(planes_cl: torch.Tensor, coords: torch.Tensor,
     if dcoords.numel() == 0:
         dcoords.zero_()
         return dplanes, dcoords
-    bins, max_work = grad_scratch_sizes(b, n, r)
     partial = torch.empty((3, b * n, 2), dtype=torch.float32, device=dev)
-    counts = torch.empty(bins, dtype=torch.int32, device=dev)
-    work = torch.empty((max_work, 2), dtype=torch.int32, device=dev)
-    work_count = torch.empty(1, dtype=torch.int32, device=dev)
-    entries = torch.empty((3 * b * n, 4), dtype=torch.int32, device=dev)
+    counts, work, work_count, entries, max_work = _bin_scratch(b, n, r, dev)
     fn = _function(GRAD_KERNEL, 'triplane_sample_grad_bf16')
     err = cuda_build.call(
         fn, planes_cl, planes_cl.data_ptr(), coords.data_ptr(),
@@ -243,12 +251,19 @@ def launch_grad(planes_cl: torch.Tensor, coords: torch.Tensor,
 
 def launch_grad_planes(plane_shape: Sequence[int], coords: torch.Tensor,
                        grad_out: torch.Tensor) -> torch.Tensor:
-    """Runs the planes-only backward kernel: coords (B, N, 3) f32 and
-    grad_out (B, N, 32) bf16 on the card -> dplanes (B, 3, R, R, 32) f32,
-    for planes of `plane_shape`. The planes themselves are not read."""
+    """Runs the planes-only backward kernels (one count in
+    `grad_planes_launches`; the call bins the points as B2 does and
+    accumulates each bin in shared memory, four CUDA kernels): coords
+    (B, N, 3) f32 and grad_out (B, N, 32) bf16 on the card -> dplanes
+    (B, 3, R, R, 32) f32, for planes of `plane_shape`. The planes
+    themselves are not read. It takes what the binning takes
+    (`grad_scratch_sizes`): R up to GRAD_MAX_TILES * GRAD_TILE (1024) and
+    B * N * 3 below 2^31, and raises above."""
     global grad_planes_launches
     b, three, r, r2, c = plane_shape
     n = coords.shape[1] if coords.ndim == 3 else -1
+    if n >= 0:
+        grad_scratch_sizes(b, n, r)
     if (three != 3 or r != r2 or c != CHANNELS or coords.ndim != 3 or
             coords.shape[0] != b or coords.shape[2] != 3 or
             coords.dtype != torch.float32 or not coords.is_contiguous()):
@@ -264,13 +279,16 @@ def launch_grad_planes(plane_shape: Sequence[int], coords: torch.Tensor,
     if coords.device.type != 'cuda':
         raise ValueError(f'the CUDA kernel needs CUDA tensors, got '
                          f'{coords.device}')
-    dplanes = torch.zeros(tuple(plane_shape), dtype=torch.float32,
-                          device=coords.device)
+    dev = coords.device
+    dplanes = torch.zeros(tuple(plane_shape), dtype=torch.float32, device=dev)
     if coords.numel() == 0:
         return dplanes
+    counts, work, work_count, entries, max_work = _bin_scratch(b, n, r, dev)
     fn = _function(GRAD_PLANES_KERNEL, 'triplane_sample_grad_planes_bf16')
     err = cuda_build.call(fn, coords, coords.data_ptr(), grad_out.data_ptr(),
-                          dplanes.data_ptr(), b, n, r)
+                          dplanes.data_ptr(), counts.data_ptr(),
+                          work.data_ptr(), work_count.data_ptr(),
+                          entries.data_ptr(), b, n, r, GRAD_CHUNK, max_work)
     if err != 0:
         raise RuntimeError(f'{GRAD_PLANES_KERNEL} launch failed: cudaError '
                            f'{err}')

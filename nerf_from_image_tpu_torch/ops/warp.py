@@ -14,8 +14,10 @@ repeated per crop, then `core.augment._grid_sample_zeros` and its
 autograd) only for tensors that lie on the CPU; for CUDA tensors it
 launches the kernels, through `_Warp`, or raises. The kernels take 32-bit
 offsets and one block row per crop: `_check_sizes` raises for a tensor of 2^31
-elements or more and for more than 65,535 crops. `launches` and
-`grad_launches` count the forward and backward launches.
+elements or more and for more than 65,535 crops. The backward adds each
+tap's channels with one float4 atomic into a channel-last scratch, which
+`launch_grad` allocates. `launches` and `grad_launches` count the forward
+and backward launches.
 """
 
 from __future__ import annotations
@@ -30,9 +32,10 @@ from nerf_from_image_tpu_torch.ops import cuda_build
 KERNEL = 'warp'
 MAX_CHANNELS = 6
 MAX_ELEMENTS = 2**31 - 1  # the kernels' 32-bit offsets
-MAX_CROPS = 65535  # B * N: the forward's grid rows
+MAX_CROPS = 65535  # B * N: the kernels' grid rows, one a crop
 ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 6 + \
     [ctypes.c_void_p]
+GRAD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 launches = 0
 grad_launches = 0
@@ -66,9 +69,10 @@ def _check_sizes(images_shape, grid: torch.Tensor) -> None:
                          f'{tuple(grid.shape)}')
 
 
-def _launch(name: str, first: torch.Tensor, grid: torch.Tensor,
-            out: torch.Tensor, images_shape) -> int:
-    """Launches `name`; returns the number of launches made (0 or 1)."""
+def _launch(first: torch.Tensor, grid: torch.Tensor, out: torch.Tensor,
+            images_shape) -> int:
+    """Launches the forward; returns the number of launches made (0 or
+    1)."""
     b, c, ih, iw = images_shape
     _, n, oh, ow, _ = grid.shape
     if first.device.type != 'cuda':
@@ -78,11 +82,11 @@ def _launch(name: str, first: torch.Tensor, grid: torch.Tensor,
         raise ValueError('the warp kernels take contiguous tensors')
     if out.numel() == 0 or first.numel() == 0:
         return 0
-    fn = cuda_build.function(KERNEL, name, ARGTYPES)
+    fn = cuda_build.function(KERNEL, 'warp_forward_f32', ARGTYPES)
     err = cuda_build.call(fn, first, first.data_ptr(), grid.data_ptr(),
                           out.data_ptr(), b, n, c, ih, iw, oh, ow)
     if err != 0:
-        raise RuntimeError(f'{name} launch failed: cudaError {err}')
+        raise RuntimeError(f'warp_forward_f32 launch failed: cudaError {err}')
     return 1
 
 
@@ -95,17 +99,24 @@ def launch(images: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     b, c = images.shape[:2]
     _, n, oh, ow, _ = grid.shape
     out = images.new_empty((b, n, c, oh, ow))
-    launches += _launch('warp_forward_f32', images, grid, out, images.shape)
+    launches += _launch(images, grid, out, images.shape)
     return out
 
 
 def launch_grad(grad_out: torch.Tensor, grid: torch.Tensor,
                 images_shape) -> torch.Tensor:
-    """Runs the backward kernel: grad_out (B, N, C, H', W') and the grid
-    -> the gradient of the images, (B, C, H, W) float32."""
+    """Runs the backward kernels: grad_out (B, N, C, H', W') and the grid
+    -> the gradient of the images, (B, C, H, W) float32.
+
+    Every size the wrapper takes (`_check_sizes`: under 2^31 elements a
+    tensor, at most 65,535 crops; C at most 6) goes one way: the taps'
+    float4 atomics into a channel-last (B, H, W, 4) float32 scratch
+    (two float4s a texel above 4 channels), which the wrapper allocates,
+    then the scratch written out as (B, C, H, W). No grid or image size
+    takes another path."""
     global grad_launches
     _check_sizes(images_shape, grid)
-    b, c, _, _ = images_shape
+    b, c, ih, iw = images_shape
     _, n, oh, ow, _ = grid.shape
     if (grad_out.shape != (b, n, c, oh, ow) or
             grad_out.dtype != torch.float32 or
@@ -113,10 +124,26 @@ def launch_grad(grad_out: torch.Tensor, grid: torch.Tensor,
         raise ValueError(f'grad_out must be float32 {(b, n, c, oh, ow)} on '
                          f'{grid.device}, got {grad_out.dtype} '
                          f'{tuple(grad_out.shape)} on {grad_out.device}')
-    dimages = torch.zeros(images_shape, dtype=torch.float32,
+    if grid.device.type != 'cuda':
+        raise ValueError(f'the CUDA kernel needs CUDA tensors, got '
+                         f'{grid.device}')
+    if not (grad_out.is_contiguous() and grid.is_contiguous()):
+        raise ValueError('the warp kernels take contiguous tensors')
+    if grad_out.numel() == 0 or b * c * ih * iw == 0:
+        return torch.zeros(images_shape, dtype=torch.float32,
+                           device=grid.device)
+    dimages = torch.empty(images_shape, dtype=torch.float32,
                           device=grid.device)
-    grad_launches += _launch('warp_backward_f32', grad_out, grid, dimages,
-                             images_shape)
+    scratch = torch.empty((b, ih, iw, 4 * -(-c // 4)), dtype=torch.float32,
+                          device=grid.device)
+    fn = cuda_build.function(KERNEL, 'warp_backward_f32', GRAD_ARGTYPES)
+    err = cuda_build.call(fn, grid, grad_out.data_ptr(), grid.data_ptr(),
+                          dimages.data_ptr(), scratch.data_ptr(), b, n, c,
+                          ih, iw, oh, ow)
+    if err != 0:
+        raise RuntimeError(f'warp_backward_f32 launch failed: cudaError '
+                           f'{err}')
+    grad_launches += 1
     return dimages
 
 

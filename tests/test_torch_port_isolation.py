@@ -22,8 +22,9 @@ from nerf_from_image_tpu_torch.models.lpips import LPIPS
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / 'nerf_from_image_tpu_torch'
-PORT_SOURCES = sorted(PORT.rglob('*.py')) + [REPO / 'chip_smoke.py',
-                                              REPO / 'chip_ab.py']
+PORT_SOURCES = sorted(PORT.rglob('*.py')) + [
+    REPO / 'chip_smoke.py', REPO / 'chip_ab.py',
+    REPO / 'probes' / 'backward_designs.py']
 
 
 def _module_names():
