@@ -25,7 +25,14 @@ samples):
   bootstrap encoder (MiT-B5 SegFormer), host PnP, the initial
   parameters, 30 refinement steps with the checkpoint evaluations at
   steps 0 and 30 (front and novel views, their renders through the fused
-  sample + decoder tail), and the consolidated report.
+  sample + decoder tail), the consolidated report with FID (a random
+  InceptionV3 in the reference's key format) and its files;
+- SDF pretraining at the CLI's batch of 32 (the same generator, p3d_car's
+  box, 31^3 stratified points an image, distance + 0.1 eikonal, Adam at
+  0.0025, then EMA <- params);
+- encoder distillation at batch 32: the pretrained EMA generator renders
+  image, mask and canonical coordinates (through B1, never the fused B5a)
+  and the MiT-B5 encoder takes a train-mode step with stochastic depth.
 
 Phases, each printed as one JSON line:
 
@@ -63,12 +70,26 @@ Phases, each printed as one JSON line:
   pipeline   bootstrap -> PnP -> init -> evaluation -> 30 steps ->
              evaluation -> report, ms per stage, launch counts per stage
              (B5a only in the evaluations, never B1 there; never B5a in the
-             steps), the report's numbers and PnP's fallback count
+             steps), the report's numbers and PnP's fallback count; the
+             Inception activations of both evaluations, the real targets'
+             FID statistics, fid_front and fid_random, the Inception
+             forward's ms per batch, and the report checkpoint and files
+             written and read back in a temporary directory
+  pretrain   one warm-up step, then 5 pretraining steps (counts reset just
+             before and read just after: no kernel runs), ms per step, peak
+             memory, dist and eik per step, the EMA a copy of G; one step
+             at batch 2 on the card against the same step on the CPU
+  distill    one warm-up step, then 5 distillation steps (counts reset
+             around each: B1 twice a step, nothing else), ms per step and
+             per stage (targets' render, encoder forward + backward,
+             Adam), images/s, peak memory, the three losses; the targets
+             and one step's loss and gradients against the same on the
+             plain sampler
   profile    the render's stages timed with CUDA events; one render, one
-             inversion step, one G step and one D step traced with
-             torch.profiler: device busy time, its idle share of the traced
-             wall time, costliest kernels and costliest operators with
-             their input shapes
+             inversion step, one G step, one D step, one pretraining step
+             and one distillation step traced with torch.profiler: device
+             busy time, its idle share of the traced wall time, costliest
+             kernels and costliest operators with their input shapes
 
 Then a line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Any failure raises and the script exits non-zero; without CUDA it exits
@@ -83,8 +104,10 @@ import concurrent.futures
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -100,13 +123,16 @@ from nerf_from_image_tpu_torch.invert import pnp
 from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
 from nerf_from_image_tpu_torch.models.generator import Generator
 from nerf_from_image_tpu_torch.models.generator import palette_rgb
+from nerf_from_image_tpu_torch.models.inception import InceptionV3FID
 from nerf_from_image_tpu_torch.models.lpips import LPIPS
 from nerf_from_image_tpu_torch.ops import cuda_build
 from nerf_from_image_tpu_torch.ops import triplane
 from nerf_from_image_tpu_torch.ops import triplane_cuda
 from nerf_from_image_tpu_torch.ops import warp
 from nerf_from_image_tpu_torch.render.renderer import normalize, render
+from nerf_from_image_tpu_torch.train import encoder as distill
 from nerf_from_image_tpu_torch.train import gan
+from nerf_from_image_tpu_torch.train import pretrain
 from nerf_from_image_tpu_torch.utils import convert
 
 # bench.py's operating point.
@@ -212,6 +238,42 @@ G_STEP_LAUNCHES = {'triplane_sample': 2, 'triplane_sample_grad': 0,
                    'triplane_sample_grad_planes': 2, 'warp_forward': 0,
                    'warp_backward': 0, 'triplane_sample_fused': 0}
 D_STEP_LAUNCHES = dict(G_STEP_LAUNCHES, triplane_sample_grad_planes=0)
+
+# SDF pretraining and encoder distillation: the CLI's batch
+# (nerf_from_image_tpu/config.py:31), the flagship generator in p3d_car's
+# box with bfloat16 activations (the CLI's compute dtype), one warm-up step
+# and then STAGE_STEPS timed steps each.
+STAGE_BATCH = 32
+STAGE_STEPS = 5
+PRETRAIN_CFG = dataclasses.replace(TRAIN_CFG, batch_size=STAGE_BATCH)
+PRETRAIN_LR = 0.0025  # config.py:38
+PRETRAIN_EIKONAL = 0.1  # config.py:46
+# One pretraining step at batch 2 on the card against the same step on the
+# CPU, both in float32 (TF32 off), from the same weights, z and strata: the
+# same float32 sums in another order (cuDNN's convolutions, the atomics of
+# the gather's backward). On an H100 80GB HBM3 at 700 W they read 5.9e-7
+# (loss) and 1.2e-6 (gradients); the limits sit about 20 and 100 times
+# above, below what one bfloat16 rounding in a layer moves (about 4e-3).
+PRETRAIN_CHECK_BATCH = 2
+PRETRAIN_LOSS_RTOL = 1e-5  # |loss_card - loss_cpu| / |loss_cpu|
+PRETRAIN_GRAD_RTOL = 1e-4  # ||g_card - g_cpu|| / ||g_cpu||, per tensor
+DISTILL_CFG = distill.EncoderConfig(
+    resolution=RES, latent_dim=512, depth_samples_per_ray=SAMPLES,
+    scene_range=1.4, white_background=False)
+# A distillation step renders its targets (B1, coarse and fine) without a
+# graph and trains the encoder, which runs no kernel of the port.
+DISTILL_LAUNCHES = dict(D_STEP_LAUNCHES)
+# At the step's batch (B1 on (32, 3, 256, 256, 32) planes, 33.5M points a
+# pass): B1's output in the coarse and the fine pass, and the targets,
+# against the plain sampler on the same inputs, as the slice phase holds
+# its render (RENDER_ATOL, here of each output's largest value: the
+# coordinates reach the box's 1.4); then one step's loss and gradients on
+# those targets as the other step checks hold theirs (STEP_LOSS_RTOL,
+# STEP_GRAD_RTOL). The plain sampler runs on slices of PLAIN_SLICE views,
+# joined back together, so that its gathers fit beside the kept states
+# (each view is sampled on its own planes alone).
+PLAIN_SLICE = 8
+DISTILL_TARGET_RTOL = RENDER_ATOL
 
 TRIPLANE_TPU_KERNEL = 'nerf_from_image_tpu/ops/pallas/triplane_window.py:282'
 TRIPLANE_SOURCE = 'nerf_from_image_tpu_torch/ops/csrc/triplane_sample.cu'
@@ -870,9 +932,11 @@ def trace(fn) -> dict:
                         for e in ops[:10]]}
 
 
-def profile_phase(gen, z, cam, focal, inversion_step, train_steps) -> None:
+def profile_phase(gen, z, cam, focal, inversion_step, train_steps,
+                  stage_steps) -> None:
     """Device time of one render, by stage and by kernel, of one inversion
-    step, and of one G step and one D step."""
+    step, of one G step and one D step, and of one pretraining step and
+    one distillation step."""
     started = time.perf_counter()
 
     @torch.no_grad()
@@ -889,9 +953,11 @@ def profile_phase(gen, z, cam, focal, inversion_step, train_steps) -> None:
               'render': time_cuda(lambda: render_state(state), 5, 1)}
     render_trace = trace(lambda: render_state(synthesize()))
     g_step, d_step = train_steps
+    pretrain_step, distill_step = stage_steps
     emit('profile', started, stage_ms=stages, **render_trace,
          inversion_step=trace(inversion_step), g_step=trace(g_step),
-         d_step=trace(d_step))
+         d_step=trace(d_step), pretrain_step=trace(pretrain_step),
+         distill_step=trace(distill_step))
 
 
 def grad_case(what: str, planes_cl: torch.Tensor, coords: torch.Tensor,
@@ -1711,6 +1777,282 @@ def train_phase(rows: dict):
     return traced_g, traced_d
 
 
+def pretrain_check(state: gan.GANTrainState, cfg: gan.GANConfig) -> dict:
+    """One pretraining step's loss and the gradients of the synthesis's
+    last layer and the decoder at PRETRAIN_CHECK_BATCH, on the card
+    against the CPU: float32 copies of G's weights, the same z and
+    strata."""
+    sd = state.gen.state_dict()
+    draws = torch.Generator().manual_seed(21)
+    n = pretrain.NSTRATA - 1
+    z = torch.randn((PRETRAIN_CHECK_BATCH, cfg.latent_dim), generator=draws)
+    strata = torch.rand((PRETRAIN_CHECK_BATCH, n, n, n, 3), generator=draws)
+
+    def loss_and_grads(device):
+        gen = Generator(device=device, seed=0,
+                        **dict(GEN_KWARGS, scene_range=cfg.scene_range))
+        gen.load_state_dict(sd)
+        picks = [getattr(gen.synthesis_network,
+                         f'b{cfg.plane_resolution}').torgb.weight,
+                 gen.decoder.net[0].weight, gen.decoder.net[2].weight]
+        loss, dist, eik = pretrain.pretrain_losses(
+            gen, z.to(device), {'strata': strata.to(device)},
+            PRETRAIN_EIKONAL)
+        grads = torch.autograd.grad(loss, picks)
+        return float(loss.detach()), [g.cpu() for g in grads]
+
+    t0 = time.perf_counter()
+    c_loss, c_grads = loss_and_grads(torch.device('cuda'))
+    p_loss, p_grads = loss_and_grads(torch.device('cpu'))
+    loss_err = abs(c_loss - p_loss) / abs(p_loss)
+    grad_errs = [float((c - p).norm() / p.norm())
+                 for c, p in zip(c_grads, p_grads)]
+    if loss_err > PRETRAIN_LOSS_RTOL or max(grad_errs) > PRETRAIN_GRAD_RTOL:
+        raise AssertionError(f'pretraining step on the card differs from the '
+                             f'CPU: loss {loss_err}, grads {grad_errs}')
+    return {'batch': PRETRAIN_CHECK_BATCH, 'loss_card': c_loss,
+            'loss_cpu': p_loss, 'loss_rel_err': loss_err,
+            'grad_rel_err': dict(zip(('torgb', 'decoder.net.0',
+                                      'decoder.net.2'), grad_errs)),
+            'loss_rtol': PRETRAIN_LOSS_RTOL, 'grad_rtol': PRETRAIN_GRAD_RTOL,
+            'seconds': time.perf_counter() - t0}
+
+
+def pretrain_phase(rows: dict):
+    """SDF pretraining at the CLI's batch on the full-width generator:
+    one warm-up call of one step, then one call of STAGE_STEPS steps (the
+    loop's Adam is fresh in each call). Returns the state and a
+    one-step call to trace."""
+    started = time.perf_counter()
+    dev = torch.device('cuda')
+    cfg = PRETRAIN_CFG
+    state = gan.init_train_state(cfg, dtype=torch.bfloat16, device=dev,
+                                 seed=0)
+    draws = torch.Generator(device=dev).manual_seed(20)
+
+    def run(n):
+        return pretrain.pretrain_sdf(state, cfg, PRETRAIN_EIKONAL, PRETRAIN_LR,
+                                     n_steps=n, return_losses=True,
+                                     generator=draws)[1]
+
+    run(1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    dist, eik = run(STAGE_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / STAGE_STEPS
+    launched = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect_launches('pretraining steps', launched)
+    dist, eik = dist.tolist(), eik.tolist()
+    if not all(np.isfinite(dist + eik)):
+        raise AssertionError(f'pretraining losses not finite: {dist}, {eik}')
+    for p, e in zip(state.gen.parameters(), state.gen_ema.parameters()):
+        if not torch.equal(p, e) or p.data_ptr() == e.data_ptr():
+            raise AssertionError('the EMA is not a copy of the parameters')
+    rows[triplane_cuda.KERNEL]['pretrain_launches'] = launched[
+        triplane_cuda.KERNEL]
+    check = pretrain_check(state, cfg)
+    emit('pretrain', started, batch=cfg.batch_size, nstrata=pretrain.NSTRATA,
+         points_per_image=(pretrain.NSTRATA - 1) ** 3, lr=PRETRAIN_LR,
+         eikonal=PRETRAIN_EIKONAL, steps=STAGE_STEPS, step_ms=step_ms,
+         images_per_s=cfg.batch_size / (step_ms / 1e3), peak_gb=peak_gb,
+         launches=launched, dist=dist, eik=eik, ema_is_a_copy=True,
+         cpu_check=check)
+    return state, lambda: pretrain.pretrain_sdf(
+        state, cfg, PRETRAIN_EIKONAL, PRETRAIN_LR, n_steps=1,
+        generator=draws)
+
+
+def distill_stages(state: distill.EncoderTrainState, gen: Generator,
+                   batch: dict, repeats: int = 3) -> dict:
+    """Median ms of a distillation step's stages, each between CUDA events:
+    the targets' render, the encoder forward and backward, and Adam."""
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    cfg = DISTILL_CFG
+    encoder = state.encoder.train()
+    params = list(encoder.parameters())
+    times = {'targets render': [], 'encoder forward + backward': [],
+             'adam': []}
+    for _ in range(repeats):
+        z = torch.randn((STAGE_BATCH, cfg.latent_dim), generator=state.rng,
+                        device=gen.beta.device)
+        targets, ms = timed(lambda: distill.render_distillation_targets(
+            gen, z, batch['pose'], batch['focal'], None, None, cfg,
+            state.rng))
+        times['targets render'].append(ms)
+
+        def forward_backward():
+            loss, _ = distill.distillation_loss(encoder, *targets, state.rng)
+            return torch.autograd.grad(loss, params)
+
+        grads, ms = timed(forward_backward)
+        times['encoder forward + backward'].append(ms)
+        for p, g in zip(params, grads):
+            p.grad = g
+        times['adam'].append(timed(state.opt.step)[1])
+        state.opt.zero_grad(set_to_none=True)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def sliced_plain(planes_cl: torch.Tensor,
+                 coords: torch.Tensor) -> torch.Tensor:
+    """The plain sampler on slices of PLAIN_SLICE views, joined."""
+    return torch.cat([triplane.plain_sampler(planes_cl[i:i + PLAIN_SLICE],
+                                             coords[i:i + PLAIN_SLICE])
+                      for i in range(0, planes_cl.shape[0], PLAIN_SLICE)])
+
+
+def sliced_rel_max(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """`rel_max` over slices of PLAIN_SLICE views (no full-size float32
+    temporaries)."""
+    err = peak = 0.0
+    for i in range(0, ref.shape[0], PLAIN_SLICE):
+        r = ref[i:i + PLAIN_SLICE].float()
+        err = max(err, float((a[i:i + PLAIN_SLICE].float() - r).abs().max()))
+        peak = max(peak, float(r.abs().max()))
+    return err / max(peak, 1e-30)
+
+
+def distill_check(state: distill.EncoderTrainState, gen: Generator,
+                  dev: torch.device) -> dict:
+    """At STAGE_BATCH views, the distillation step's shape: B1's output in
+    the targets render's coarse and fine pass against `sliced_plain` on
+    the same planes and points, the targets with B1 against the same
+    render on `sliced_plain`, then the train-mode loss and gradients on
+    each (the same encoder, the same stochastic-depth draws)."""
+    cfg = DISTILL_CFG
+    b = STAGE_BATCH
+    draws = torch.Generator(device=dev).manual_seed(24)
+    cam, focal = p3d_cameras(np.random.default_rng(25), b, dev)
+    z = torch.randn((b, cfg.latent_dim), generator=draws, device=dev)
+    noise = {'depth': torch.rand((b, RES, RES, SAMPLES), generator=draws,
+                                 device=dev),
+             'pdf_u': torch.rand((b * RES * RES, SAMPLES), generator=draws,
+                                 device=dev)}
+    passes = []
+
+    def recorded(planes_cl, coords):
+        feats = triplane_cuda.sample_triplane(planes_cl, coords)
+        passes.append((planes_cl, coords, feats))
+        return feats
+
+    encoder = state.encoder.train()
+    params = list(encoder.parameters())
+    last = [p is encoder.post[4].weight for p in params].index(True)
+    out = {}
+    for name, sampler in (('kernels', recorded), ('plain', sliced_plain)):
+        targets = distill.render_distillation_targets(
+            gen, z, cam, focal, None, None, cfg, noise, sampler)
+        if name == 'kernels':
+            if len(passes) != 2:
+                raise AssertionError(f'the targets render sampled '
+                                     f'{len(passes)} times, expected 2')
+            with torch.no_grad():
+                b1_errs = {
+                    what: sliced_rel_max(feats, sliced_plain(planes, coords))
+                    for what, (planes, coords, feats)
+                    in zip(('coarse', 'fine'), passes)}
+            points = [int(coords.shape[0] * coords.shape[1])
+                      for _, coords, _ in passes]
+            passes.clear()
+        loss, _ = distill.distillation_loss(
+            encoder, *targets, torch.Generator(device=dev).manual_seed(26))
+        grads = torch.autograd.grad(loss, params)
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads]))
+        out[name] = (targets, float(loss.detach()), float(norm), grads[last])
+    (k_t, k_loss, k_norm, k_last), (p_t, p_loss, p_norm, p_last) = (
+        out['kernels'], out['plain'])
+    target_errs = {name: rel_max(a, ref) for name, a, ref in
+                   zip(('image', 'mask', 'coords'), k_t[:3], p_t[:3])}
+    loss_err = abs(k_loss - p_loss) / abs(p_loss)
+    norm_err = abs(k_norm - p_norm) / p_norm
+    last_err = float((k_last - p_last).norm() / p_last.norm())
+    if (max(b1_errs.values()) > DISTILL_TARGET_RTOL or
+            max(target_errs.values()) > DISTILL_TARGET_RTOL or
+            loss_err > STEP_LOSS_RTOL or norm_err > STEP_GRAD_RTOL or
+            last_err > STEP_GRAD_RTOL):
+        raise AssertionError(f'distillation with the kernels differs from '
+                             f'the plain sampler: B1 {b1_errs}, targets '
+                             f'{target_errs}, loss {loss_err}, grad norm '
+                             f'{norm_err}, last layer {last_err}')
+    return {'batch': b, 'plain_slice': PLAIN_SLICE, 'b1_points': points,
+            'b1_rel_err': b1_errs, 'target_rel_err': target_errs,
+            'target_rtol': DISTILL_TARGET_RTOL, 'loss_kernels': k_loss,
+            'loss_plain': p_loss, 'loss_rel_err': loss_err,
+            'grad_norm_rel_err': norm_err, 'last_layer_grad_rel_err': last_err,
+            'loss_rtol': STEP_LOSS_RTOL, 'grad_rtol': STEP_GRAD_RTOL,
+            'mask_range': (float(k_t[1].min()), float(k_t[1].max()))}
+
+
+def distill_phase(rows: dict, gen: Generator):
+    """Encoder distillation at the CLI's batch: the frozen EMA generator
+    `gen` renders the targets, the MiT-B5 encoder (random weights, drop
+    path 0.1 from the state's generator) takes Adam steps. One warm-up
+    step, then STAGE_STEPS steps, each with its launch counts. Returns a
+    step to trace."""
+    started = time.perf_counter()
+    dev = torch.device('cuda')
+    cfg = DISTILL_CFG
+    encoder = BootstrapEncoder(cfg.latent_dim, device=dev)
+    encoder.load_state_dict({k: torch.from_numpy(v) for k, v in
+                             convert.random_encoder_state_dict(11).items()})
+    state = distill.init_train_state(encoder, seed=22)
+    rng = np.random.default_rng(23)
+
+    def batch():
+        cam, focal = p3d_cameras(rng, STAGE_BATCH, dev)
+        return {'pose': cam, 'focal': focal}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, steps = [], []
+    for k in range(STAGE_STEPS + 1):
+        b = batch()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = distill.train_step(state, b, gen, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = counts()
+        if launched != DISTILL_LAUNCHES:
+            raise AssertionError(f'distillation step {k}: launches '
+                                 f'{launched}, expected {DISTILL_LAUNCHES}')
+        steps.append({n: float(v) for n, v in metrics.items()})
+        if k > 0:  # the first step is the warm-up
+            times.append(ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for m in steps:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f'a distillation loss is not finite: {m}')
+    rows[triplane_cuda.KERNEL]['distill_launches'] = launched[
+        triplane_cuda.KERNEL]
+    step_ms = statistics.median(times)
+    stage_ms = distill_stages(state, gen, batch())
+    check = distill_check(state, gen, dev)
+    emit('distill', started, config=dataclasses.asdict(cfg),
+         batch=STAGE_BATCH, steps=STAGE_STEPS, iteration=state.iteration,
+         encoder_parameters=sum(p.numel() for p in encoder.parameters()),
+         drop_path_rate=0.1, step_ms=step_ms, step_ms_all=times,
+         stage_ms=stage_ms, images_per_s=STAGE_BATCH / (step_ms / 1e3),
+         peak_gb=peak_gb, launches_per_step=launched, step_metrics=steps,
+         plain_check=check)
+    traced = batch()
+    return lambda: distill.train_step(state, traced, gen, cfg)
+
+
 def calibrate_encoder_head(encoder: BootstrapEncoder, images: torch.Tensor,
                            foreground: float) -> None:
     """Rescales the random encoder's coordinate outputs to COORD_SPREAD
@@ -1800,7 +2142,18 @@ def pipeline_phase(rows: dict, gen: Generator, lpips: LPIPS) -> None:
     params = pipeline.init_inversion_params(z_init, cam2world, focal,
                                             cfg.camera_flipped)
 
-    ctx = pipeline.EvalContext(gen=gen, lpips=lpips, has_mask=True)
+    inception = InceptionV3FID(device=dev)
+    convert.load_inception_state_dict(inception,
+                                      convert.random_inception_state_dict(0))
+    real_stats = timed('real FID statistics', lambda: (
+        pipeline.compute_real_fid_stats(target.cpu().numpy(), inception,
+                                        batch_size=BATCH)))
+    with torch.no_grad():
+        inception_ms = time_cuda(lambda: inception(
+            target[..., :3].permute(0, 3, 1, 2) / 2 + 0.5), 5)
+
+    ctx = pipeline.EvalContext(gen=gen, lpips=lpips, has_mask=True,
+                               inception=inception)
     report = pipeline.make_report([0, PIPELINE_STEPS])
     launches = {}
 
@@ -1826,7 +2179,22 @@ def pipeline_phase(rows: dict, gen: Generator, lpips: LPIPS) -> None:
                        triplane_cuda.GRAD_KERNEL: True,
                        'warp_forward': True, 'warp_backward': True})
     evaluate(PIPELINE_STEPS, final)
-    report, report_text = pipeline.consolidate_report(report)
+    for step, entry in report.items():
+        for key in ('inception_activations_front',
+                    'inception_activations_random'):
+            acts = entry[key]
+            if (len(acts) != 1 or acts[0].shape != (BATCH, 2048) or
+                    not np.all(np.isfinite(acts[0]))):
+                raise AssertionError(f'{key} at {step}: '
+                                     f'{[a.shape for a in acts]}')
+    files = report_files_round_trip(report)
+    report, report_text = timed('consolidate', lambda: (
+        pipeline.consolidate_report(report, real_stats)))
+    fids = {step: {k: float(entry[k]) for k in ('fid_front', 'fid_random')}
+            for step, entry in report.items()}
+    if not all(np.isfinite(v) for f in fids.values() for v in f.values()):
+        raise AssertionError(f'FID not finite: {fids}')
+    files.update(report_save_round_trip(report, report_text))
 
     metrics = {k: v.float().cpu().tolist() for k, v in metrics.items()}
     for key in ('loss', 'psnr', 'lpips', 'rot_error'):
@@ -1848,8 +2216,47 @@ def pipeline_phase(rows: dict, gen: Generator, lpips: LPIPS) -> None:
          empty_mask_fallbacks=int(np.sum(dummy == pnp.DUMMY_ERROR)),
          target_foreground=foreground,
          mask_pass_share=float((mask_np > PNP_MASK_CUT).mean()),
-         step_metrics=metrics, report=averages,
+         step_metrics=metrics, report=averages, fid=fids,
+         inception_ms_per_batch=inception_ms, report_files=files,
          report_text=report_text.strip().splitlines())
+
+
+def report_files_round_trip(report) -> dict:
+    """The unconsolidated report through a report checkpoint in a
+    temporary directory: every list back in order, with its index and
+    key."""
+    key = torch.Generator().manual_seed(27).get_state()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'report_checkpoint.npz')
+        pipeline.save_report_checkpoint(path, report, 1, key)
+        back = pipeline.make_report(list(report))
+        idx, back_key = pipeline.load_report_checkpoint(path, back)
+        size = os.path.getsize(path)
+    same = idx == 1 and np.array_equal(back_key, key.numpy()) and all(
+        len(back[step][k]) == len(v) and all(
+            np.array_equal(a, b) for a, b in zip(back[step][k], v))
+        for step, entry in report.items() for k, v in entry.items())
+    if not same:
+        raise AssertionError('the report checkpoint did not give back the '
+                             'report')
+    return {'checkpoint_bytes': size}
+
+
+def report_save_round_trip(report, report_text: str) -> dict:
+    """The consolidated report through `save_report`'s files in a
+    temporary directory: every array and the text back as they were."""
+    with tempfile.TemporaryDirectory() as tmp:
+        pipeline.save_report(report, report_text, tmp, header='chip_smoke')
+        data = np.load(os.path.join(tmp, 'report.npz'))
+        same = set(data.files) == {f'{step}/{k}' for step, entry in
+                                   report.items() for k in entry} and all(
+            np.array_equal(data[f'{step}/{k}'], np.asarray(v))
+            for step, entry in report.items() for k, v in entry.items())
+        with open(os.path.join(tmp, 'report.txt')) as f:
+            same = same and f.read() == 'chip_smoke\n' + report_text
+    if not same:
+        raise AssertionError('save_report did not give back the report')
+    return {'report_arrays': len(data.files)}
 
 
 def main() -> None:
@@ -1867,7 +2274,13 @@ def main() -> None:
     inversion_step = inversion_phase(rows, inv_gen, lpips)
     pipeline_phase(rows, inv_gen, lpips)
     train_steps = train_phase(rows)
-    profile_phase(*render_args, inversion_step, train_steps)
+    torch.cuda.empty_cache()
+    pretrained, pretrain_step = pretrain_phase(rows)
+    torch.cuda.empty_cache()
+    distill_step = distill_phase(rows, pretrained.gen_ema)
+    torch.cuda.empty_cache()
+    profile_phase(*render_args, inversion_step, train_steps,
+                  (pretrain_step, distill_step))
     emit('done', started)
     print(json.dumps({'kernels': list(rows.values())}), flush=True)
     print(json.dumps({'ok': True, 'device': device}), flush=True)

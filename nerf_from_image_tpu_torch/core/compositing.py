@@ -11,7 +11,7 @@ equal to JAX's `render_volume_density(samples_sorted=False)`.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,21 +37,25 @@ def compute_weights(sigma: torch.Tensor, ray_directions: torch.Tensor,
     return alpha * cumprod_exclusive(1.0 - alpha + 1e-10)
 
 
-def render_volume_density(sigma: torch.Tensor, rgb: torch.Tensor,
-                          ray_directions: torch.Tensor,
-                          depth_values: torch.Tensor,
-                          white_background: bool = True
-                          ) -> Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor]:
-    """Composites sigma/rgb along rays, samples in any per-ray order.
+def composite(sigma: torch.Tensor, rgb: torch.Tensor,
+              ray_directions: torch.Tensor, depth_values: torch.Tensor,
+              semantics: Optional[torch.Tensor] = None,
+              white_background: bool = True
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         Optional[torch.Tensor]]:
+    """Composites sigma/rgb (and optional per-sample semantics) along
+    rays, samples in any per-ray order.
 
     Args:
       sigma: (..., S), rgb: (..., S, C), depth_values: (..., S),
-      ray_directions: (..., 3).
+      ray_directions: (..., 3), semantics: None or (..., S, K).
 
     Returns:
-      (rgb_map (..., C), depth_map (...), mask (...)), in float32. The
-      depth map uses detached weights.
+      (rgb_map (..., C), depth_map (...), mask (...), semantic_map
+      (..., K) or None), in float32. The depth map uses detached weights;
+      rgb, mask and semantics the weights themselves, as the JAX package
+      composites them (its normal map, not ported yet, takes the detached
+      ones).
     """
     sigma = sigma.float()
     rgb = rgb.float()
@@ -64,9 +68,25 @@ def render_volume_density(sigma: torch.Tensor, rgb: torch.Tensor,
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
     depth_map = torch.sum(weights.detach() * depth_values.detach(), dim=-1)
     mask = torch.sum(weights, dim=-1)
+    semantic_map = None
+    if semantics is not None:
+        semantics = torch.take_along_dim(semantics.float(),
+                                         order[..., None], dim=-2)
+        semantic_map = torch.sum(weights[..., None] * semantics, dim=-2)
     if white_background:
         rgb_map = rgb_map + (1.0 - mask[..., None])
-    return rgb_map, depth_map, mask
+    return rgb_map, depth_map, mask, semantic_map
+
+
+def render_volume_density(sigma: torch.Tensor, rgb: torch.Tensor,
+                          ray_directions: torch.Tensor,
+                          depth_values: torch.Tensor,
+                          white_background: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """`composite` without semantics: (rgb_map, depth_map, mask)."""
+    return composite(sigma, rgb, ray_directions, depth_values,
+                     white_background=white_background)[:3]
 
 
 def render_volume_density_weights_only(sigma: torch.Tensor,

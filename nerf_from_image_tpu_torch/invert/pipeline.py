@@ -1,14 +1,18 @@
 """Hybrid inversion of a batch: encoder bootstrap -> PnP -> refinement ->
-report (PyTorch port of `nerf_from_image_tpu/invert/pipeline.py`, less
-the FID statistics).
+report (PyTorch port of `nerf_from_image_tpu/invert/pipeline.py`).
 
 Per batch of target images, the bootstrap encoder predicts canonical
 coordinates, a mask and a latent w (`bootstrap_dispatch`, on the card);
 the native PnP solver recovers each camera on the host
 (`bootstrap_finish`); `init_inversion_params` turns both into the
 refinement's parameters; `evaluate_checkpoint` records the parameters
-and the front-view and novel-view metrics at a checkpoint step; and
-`consolidate_report` averages them into the reference's report schema.
+and the front-view and novel-view metrics at a checkpoint step, with the
+Inception activations of both renders when the context holds an
+`InceptionV3FID`; `consolidate_report` averages them into the reference's
+report schema and turns the activations into FIDs against the real
+images' statistics (`compute_real_fid_stats`); `save_report` writes the
+report's files, and `save_report_checkpoint`/`load_report_checkpoint`
+keep a run's accumulated report for a resume.
 
 The checkpoint renders take no gradient, so they run under
 `torch.no_grad()` on `Generator.fused_view()` of the refinement
@@ -20,6 +24,7 @@ the differentiable sampler (B1 forward, B2 backward).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -28,11 +33,14 @@ import torch
 from nerf_from_image_tpu_torch.core import pose as pose_lib
 from nerf_from_image_tpu_torch.invert import optimizer as inv_opt
 from nerf_from_image_tpu_torch.invert import pnp
+from nerf_from_image_tpu_torch.metrics import fid as fid_lib
 from nerf_from_image_tpu_torch.metrics import image as image_metrics
 from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
 from nerf_from_image_tpu_torch.models.generator import Generator
+from nerf_from_image_tpu_torch.models.inception import InceptionV3FID
 from nerf_from_image_tpu_torch.models.lpips import LPIPS
 from nerf_from_image_tpu_torch.render.renderer import render
+from nerf_from_image_tpu_torch.utils import io as io_lib
 
 REPORT_SCALARS = ('psnr', 'psnr_random', 'lpips', 'lpips_random', 'ssim',
                   'ssim_random', 'iou', 'rot_error')
@@ -46,6 +54,8 @@ def make_report(checkpoint_steps) -> Dict[int, Dict[str, list]]:
             'ws': [], 'z0': [], 'R': [], 's': [], 't2': [],
             'psnr': [], 'psnr_random': [], 'lpips': [], 'lpips_random': [],
             'ssim': [], 'ssim_random': [], 'iou': [], 'rot_error': [],
+            'inception_activations_front': [],
+            'inception_activations_random': [],
         } for step in checkpoint_steps
     }
 
@@ -100,10 +110,18 @@ def init_inversion_params(z_init: torch.Tensor, cam2world: np.ndarray,
 @dataclasses.dataclass
 class EvalContext:
     """What `evaluate_checkpoint` uses: the refinement's generator, LPIPS,
-    and whether the dataset has masks (then the IoU is recorded)."""
+    whether the dataset has masks (then the IoU is recorded), and the FID
+    network (None: no activations are recorded)."""
     gen: Generator
     lpips: LPIPS
     has_mask: bool
+    inception: Optional[InceptionV3FID] = None
+
+
+def _to01(rgb: torch.Tensor) -> torch.Tensor:
+    """A render (B, H, W, C) in [-1, 1] -> clipped (B, 3, H, W) in [0, 1],
+    as the Inception network takes it."""
+    return rgb.clamp(-1.0, 1.0).permute(0, 3, 1, 2)[:, :3] / 2 + 0.5
 
 
 def _front_metrics(ctx: EvalContext, rgb: torch.Tensor, mask: torch.Tensor,
@@ -143,7 +161,8 @@ def evaluate_checkpoint(ctx: EvalContext, cfg: inv_opt.InversionConfig,
     for the IoU); the rotation error is against `gt_cam2world`. With
     `perm_cameras` = (cam2world, focal, center, bbox), the latent is also
     rendered from those cameras and scored against `target_img_random`.
-    Every value is appended as a numpy array.
+    With `ctx.inception`, each render's Inception activations are
+    recorded too. Every value is appended as a numpy array.
     """
     def app(key, value):
         report_entry[key].append(value.detach().cpu().numpy())
@@ -162,6 +181,8 @@ def evaluate_checkpoint(ctx: EvalContext, cfg: inv_opt.InversionConfig,
     for k, v in _front_metrics(ctx, out.rgb, out.mask, target_img_fid,
                                with_iou).items():
         app(k, v)
+    if ctx.inception is not None:
+        app('inception_activations_front', ctx.inception(_to01(out.rgb)))
     if gt_cam2world is not None:
         app('rot_error', pose_lib.rotation_matrix_distance(cam, gt_cam2world))
 
@@ -182,11 +203,17 @@ def evaluate_checkpoint(ctx: EvalContext, cfg: inv_opt.InversionConfig,
                                    target_img_random, False,
                                    '_random').items():
             app(k, v)
+    if ctx.inception is not None:
+        app('inception_activations_random', ctx.inception(_to01(out_r.rgb)))
 
 
-def consolidate_report(report) -> Tuple[Dict[int, Dict[str, object]], str]:
-    """Joins each entry's batches and adds `<metric>_avg` for the report's
-    scalars. Returns (report, report text); FID is not computed."""
+def consolidate_report(report, train_fid_stats=None, test_fid_stats=None
+                       ) -> Tuple[Dict[int, Dict[str, object]], str]:
+    """Joins each entry's batches, adds `<metric>_avg` for the report's
+    scalars, and, with `train_fid_stats` (mu, sigma), `fid_front` and
+    `fid_random` from the recorded activations (and their `_test` forms
+    against `test_fid_stats`); the activations are dropped either way.
+    Returns (report, report text)."""
     lines: List[str] = []
     for iter_num, entry in report.items():
         for k in list(entry.keys()):
@@ -201,5 +228,97 @@ def consolidate_report(report) -> Tuple[Dict[int, Dict[str, object]], str]:
                 val = float(np.mean(entry[elem]))
                 line += f' {elem} {val:.05f}'
                 entry[f'{elem}_avg'] = val
+        for src_key, dst_key in (('inception_activations_front', 'fid_front'),
+                                 ('inception_activations_random',
+                                  'fid_random')):
+            acts = entry.pop(src_key, None)
+            if acts is None or train_fid_stats is None:
+                continue
+            stats = fid_lib.calculate_stats(acts)
+            val = fid_lib.calculate_frechet_distance(*stats,
+                                                     *train_fid_stats)
+            entry[dst_key] = val
+            line += f' {dst_key} {val:.02f}'
+            if test_fid_stats is not None:
+                val_t = fid_lib.calculate_frechet_distance(*stats,
+                                                           *test_fid_stats)
+                entry[dst_key + '_test'] = val_t
+                line += f' {dst_key}_test {val_t:.02f}'
         lines.append(line + '\n')
     return report, ''.join(lines)
+
+
+def save_report_checkpoint(path: str, report, idx: int, key) -> None:
+    """A run's resume state: the accumulated (unconsolidated) report, the
+    next batch index and `key` (the draws' state, any array, e.g. a
+    `torch.Generator`'s `get_state()`), into one compressed .npz."""
+    flat = {'__idx__': np.asarray(idx), '__key__': np.asarray(key)}
+    for step, entry in report.items():
+        for k, v in entry.items():
+            for i, arr in enumerate(v):
+                flat[f'{step}/{k}/{i}'] = np.asarray(arr)
+    io_lib.save_npz(path, compressed=True, **flat)
+
+
+def load_report_checkpoint(path: str, report):
+    """Restores `save_report_checkpoint`'s report into `report` (made by
+    `make_report` with the same steps), each list in append order.
+    Returns (idx, key), or (0, None) when there is no file."""
+    if not os.path.exists(path):
+        return 0, None
+    data = io_lib.load_npz(path)
+    for step in report:
+        for k in report[step]:
+            names = sorted((n for n in data if n.startswith(f'{step}/{k}/')),
+                           key=lambda n: int(n.rsplit('/', 1)[1]))
+            report[step][k] = [data[n] for n in names]
+    return int(data['__idx__']), data.get('__key__')
+
+
+@torch.no_grad()
+def compute_real_fid_stats(images: np.ndarray,
+                           inception: Optional[InceptionV3FID],
+                           batch_size: int = 8,
+                           cache_path: Optional[str] = None):
+    """(mu, sigma) of the Inception activations of real images (N, H, W,
+    3+) in [-1, 1], in batches of `batch_size` (the last one padded with
+    its last image, whose padding rows are dropped), or None without a
+    network. With `cache_path`, read from there when the file exists and
+    written there otherwise."""
+    if inception is None:
+        return None
+    if cache_path is not None and os.path.exists(cache_path):
+        data = io_lib.load_npz(cache_path)
+        return data['mu'], data['sigma']
+    device = next(inception.parameters()).device
+    acts = []
+    for i in range(0, len(images), batch_size):
+        im = images[i:i + batch_size]
+        pad = batch_size - len(im)
+        if pad:
+            im = np.concatenate([im, np.repeat(im[-1:], pad, 0)], 0)
+        im01 = torch.as_tensor(
+            np.ascontiguousarray(im[..., :3].transpose(0, 3, 1, 2)),
+            dtype=torch.float32, device=device) / 2 + 0.5
+        a = inception(im01).cpu().numpy()
+        acts.append(a[:batch_size - pad] if pad else a)
+    stats = fid_lib.calculate_stats(np.concatenate(acts, 0))
+    if cache_path is not None:
+        io_lib.save_npz(cache_path, mu=stats[0], sigma=stats[1])
+    return stats
+
+
+def save_report(report, report_str: str, out_dir: str,
+                header: str = '') -> None:
+    """The consolidated report as `out_dir/report.npz` (one array per
+    '<step>/<key>') and `out_dir/report.txt` (the header, then the
+    text)."""
+    os.makedirs(out_dir, exist_ok=True)
+    flat = {f'{step}/{k}': np.asarray(v)
+            for step, entry in report.items() for k, v in entry.items()}
+    io_lib.save_npz(os.path.join(out_dir, 'report.npz'), compressed=True,
+                    **flat)
+    with open(os.path.join(out_dir, 'report.txt'), 'w') as f:
+        if header:
+            f.write(header + '\n')
+        f.write(report_str)

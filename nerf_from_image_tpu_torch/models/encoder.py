@@ -14,7 +14,7 @@ defaults are MiT-B5.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +31,10 @@ class BootstrapEncoder(nn.Module):
     Parameters take PyTorch's default initialisation; a reference-format
     state dict (`utils.convert.random_encoder_state_dict`, or a trained
     encoder's) replaces them through `load_state_dict`. The module is
-    built on `device` (None: CUDA, raising when it is absent).
+    built on `device` (None: CUDA, raising when it is absent). Train
+    mode is `train()` plus a `torch.Generator` passed to `forward`, from
+    which each SegFormer block draws its stochastic-depth masks; in eval
+    mode stochastic depth is the identity and no generator is needed.
     """
 
     def __init__(self, latent_dim: int, separate_backbones: bool = False,
@@ -65,9 +68,10 @@ class BootstrapEncoder(nn.Module):
             nn.Linear(head_width, latent_dim))
         self.to(device)
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        features = self.backbone(x)
+        features = self.backbone(x, generator)
 
         f = F.interpolate(features, size=(4 * features.shape[2],
                                           4 * features.shape[3]),
@@ -77,7 +81,7 @@ class BootstrapEncoder(nn.Module):
         mask = torch.sigmoid(maps[:, 3]).float()
 
         if hasattr(self, 'backbone_latent'):
-            features = self.backbone_latent(x)
+            features = self.backbone_latent(x, generator)
         fl = F.relu(self.w_regressor_pre(F.relu(features)))
         w = self.w_regressor_post(fl.mean(dim=(2, 3)))
         w = F.leaky_relu(w, 0.2)[:, None, :].float()

@@ -9,9 +9,11 @@ Names follow the reference's state-dict keys (`mapping_network.backbone.*`,
 `synthesis_network.b*`, `decoder.net.{0,2}`, `texture_mapper.*`, `beta`,
 `alpha`), so a reference-format state dict loads unchanged. The slice
 ports the configuration every reference dataset trains: an SDF field
-(`--use_sdf` is always true there) with an attention palette, and the SDF
-regularizers of GAN training (eikonal, total variation, entropy). View
-directions, encoder, class embedding, noise injection and normals wait for
+(`--use_sdf` is always true there) with an attention palette, the SDF
+regularizers of GAN training (eikonal, total variation, entropy) and the
+distance loss of SDF pretraining, and the world points as a per-point
+output (the encoder distillation's coordinate render). View directions,
+encoder, class embedding, noise injection, normals and semantics wait for
 later slices.
 """
 
@@ -282,7 +284,8 @@ class Generator(nn.Module):
 
         Args:
           x_in: (B, ..., 3) world-space points, float32.
-          requests: a subset of {'sigma', 'rgb'}.
+          requests: a subset of {'sigma', 'rgb', 'coords'}; with
+            `fuse_decode`, of {'sigma', 'rgb'}.
           sampler: the triplane sampler; the default runs the CUDA
             kernels (forward B1, backward B2) for CUDA tensors and their
             plain versions for CPU tensors, differentiable to the planes
@@ -292,11 +295,12 @@ class Generator(nn.Module):
             fused kernel reads them, and another sampler raises.
 
         Returns values flattened over the non-batch dims: sigma (B, N),
-        rgb (B, N, 3), and overflow_resid, a 0
+        rgb (B, N, 3), coords (B, N, 3) (the world points themselves),
+        and overflow_resid, a 0
         int32 scalar (the JAX package's windowed-sampler overflow count,
         which a direct gather never has).
         """
-        unknown = set(requests) - {'sigma', 'rgb'}
+        unknown = set(requests) - {'sigma', 'rgb', 'coords'}
         if unknown:
             raise NotImplementedError(f'requests not ported yet: {unknown}')
         bs = x_in.shape[0]
@@ -305,7 +309,12 @@ class Generator(nn.Module):
 
         outputs = {'overflow_resid': torch.zeros((), dtype=torch.int32,
                                                  device=x.device)}
+        if 'coords' in requests:
+            outputs['coords'] = x_in.reshape(bs, -1, 3)
         if self.fuse_decode:
+            if not set(requests) <= {'sigma', 'rgb'}:
+                raise ValueError(f'fuse_decode decodes sigma and rgb only, '
+                                 f'not {set(requests) - {"sigma", "rgb"}}')
             if sampler is not triplane_cuda.sample_triplane:
                 raise ValueError('fuse_decode samples through the fused '
                                  'call; sample another way without it')
@@ -335,8 +344,8 @@ class Generator(nn.Module):
                    rng: Union[torch.Generator, Dict[str, torch.Tensor]],
                    requests: Sequence[str] = ('sdf_eikonal_loss',),
                    nstrata: int = 32) -> Dict[str, torch.Tensor]:
-        """Eikonal, total-variation and entropy losses on stratified
-        volume samples, each (B,).
+        """Eikonal, distance, total-variation and entropy losses on
+        stratified volume samples, each (B,).
 
         The decodes run on `ops.triplane.sample_triplane_gather`, which
         autograd differentiates twice: the eikonal loss is a function of
@@ -349,10 +358,12 @@ class Generator(nn.Module):
             perturbation, on its device), or the draws themselves,
             {'strata': uniform (B, n, n, n, 3), 'perturb': normal
             (B, n^3, 3)} with n = nstrata - 1.
-          requests: a subset of {'sdf_eikonal_loss',
-            'total_variation_loss', 'entropy_loss'}.
+          requests: a subset of {'sdf_eikonal_loss', 'sdf_distance_loss',
+            'total_variation_loss', 'entropy_loss'}. The distance loss is
+            the MSE of the decoded distance to a detached ||x|| - 1, the
+            signed distance of the unit sphere (SDF pretraining).
         """
-        unknown = set(requests) - {'sdf_eikonal_loss',
+        unknown = set(requests) - {'sdf_eikonal_loss', 'sdf_distance_loss',
                                    'total_variation_loss', 'entropy_loss'}
         if unknown:
             raise NotImplementedError(f'requests not ported yet: {unknown}')
@@ -381,6 +392,9 @@ class Generator(nn.Module):
         def mean(x):
             return x.reshape(bs, -1).mean(dim=1)
 
+        if 'sdf_distance_loss' in requests:
+            target = torch.linalg.vector_norm(bins_in.detach(), dim=-1) - 1.0
+            outputs['sdf_distance_loss'] = mean((d - target).square())
         if 'total_variation_loss' in requests:
             if isinstance(rng, dict):
                 noise = rng['perturb'].reshape(bins_in.shape)

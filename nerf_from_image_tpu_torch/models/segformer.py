@@ -17,7 +17,7 @@ JAX package leaves it to XLA.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,14 +26,22 @@ from torch import nn
 LN_EPS = 1e-6
 
 
-def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Stochastic depth: each sample's residual kept with probability
-    1 - rate and rescaled; the identity in eval."""
+    1 - rate and rescaled; the identity in eval.
+
+    The keep mask is drawn from `generator`, on the activations' device;
+    None draws from a fresh generator of seed 0 there, so that a call
+    without one repeats itself. Torch's global RNG is never used.
+    """
     if not training or rate == 0.0:
         return x
+    if generator is None:
+        generator = torch.Generator(device=x.device).manual_seed(0)
     keep = 1.0 - rate
     mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
-                      device=x.device) < keep
+                      generator=generator, device=x.device) < keep
     return x * mask.to(x.dtype) / keep
 
 
@@ -119,12 +127,19 @@ class SegBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = SegMLP(dim, dim * mlp_ratio)
 
-    def forward(self, x: torch.Tensor, height: int,
-                width: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, height: int, width: int,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """Two independent keep masks from `generator` in train mode (the
+        attention's residual, then the MLP's); train mode with a rate
+        above 0 raises without one."""
+        if self.training and self.drop_path_rate > 0 and generator is None:
+            raise ValueError('stochastic depth in train mode draws from an '
+                             'explicit generator; pass one')
         x = x + drop_path(self.attn(self.norm1(x), height, width),
-                          self.drop_path_rate, self.training)
+                          self.drop_path_rate, self.training, generator)
         return x + drop_path(self.mlp(self.norm2(x), height, width),
-                             self.drop_path_rate, self.training)
+                             self.drop_path_rate, self.training, generator)
 
 
 class SegOverlapPatchEmbed(nn.Module):
@@ -181,12 +196,15 @@ class Segformer(nn.Module):
         self.linear_fuse = nn.Conv2d(4 * decoder_dim, decoder_dim, 1)
         self.linear_pred = nn.Conv2d(decoder_dim, out_features, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` feeds stochastic depth in train mode, block by
+        block in order (see `SegBlock.forward`)."""
         features = []
         for i in range(1, 5):
             tokens, h, w = getattr(self, f'patch_embed{i}')(x)
             for block in getattr(self, f'block{i}'):
-                tokens = block(tokens, h, w)
+                tokens = block(tokens, h, w, generator)
             tokens = getattr(self, f'norm{i}')(tokens)
             x = _tokens_to_map(tokens, h, w)
             features.append(x)

@@ -4,8 +4,10 @@ composite (PyTorch port of `nerf_from_image_tpu/render/renderer.py`).
 The field is `sample_fn(points, requests) -> dict`, as in the JAX package.
 The port renders sigma and rgb with a perspective camera (with an optional
 principal point and bbox crop), deterministically or with jittered depths
-and random PDF draws; normals, semantics and coordinates wait for later
-slices. The render differentiates to the field
+and random PDF draws, and composites the world points into the semantics
+slot on request (`compute_coords`, the encoder distillation's target);
+normals and the K-channel semantics wait for later slices. The render
+differentiates to the field
 and to the camera, as JAX's does: near/far, the coarse weights and the
 fine depths are detached, and the points of both passes carry the
 camera's gradient through the rays.
@@ -30,6 +32,8 @@ class RenderOutput:
     rgb: torch.Tensor  # (B, H, W, C)
     depth: torch.Tensor  # (B, H, W)
     mask: torch.Tensor  # (B, H, W)
+    # The composited world points with `compute_coords` (B, H, W, 3).
+    semantics: Optional[torch.Tensor] = None
     # Sum of the passes' overflow_resid (0: a direct gather never
     # overflows; the field exists because the JAX package's callers read
     # it).
@@ -49,7 +53,8 @@ def render(sample_fn: SampleFn, height: int, width: int,
            rng: Optional[Union[torch.Generator,
                                Dict[str, torch.Tensor]]] = None,
            center: Optional[torch.Tensor] = None,
-           bbox: Optional[torch.Tensor] = None) -> RenderOutput:
+           bbox: Optional[torch.Tensor] = None,
+           compute_coords: bool = False) -> RenderOutput:
     """Renders a batch of views.
 
     Args:
@@ -62,6 +67,9 @@ def render(sample_fn: SampleFn, height: int, width: int,
         'pdf_u': uniform (B * H * W, S)}, as the JAX package injects them.
       center: optional (B, 2) principal point in [0, 1].
       bbox: optional (B, 2, 2) normalized crop [[x0, y0], [w, h]].
+      compute_coords: also request 'coords' of `sample_fn` and composite
+        the coarse and fine points into `semantics` with the weights
+        themselves, not detached, as the JAX package does.
     """
     b = cam2world.shape[0]
     s = depth_samples_per_ray
@@ -76,7 +84,7 @@ def render(sample_fn: SampleFn, height: int, width: int,
     query_points, depth_values = rays_lib.compute_query_points_from_rays(
         ray_origins, ray_directions, near, far, s, rng=rng_coarse)
 
-    requests = ('sigma', 'rgb')
+    requests = ('sigma', 'rgb') + (('coords',) if compute_coords else ())
 
     def unflatten(v):
         return v.reshape(b, height, width, s, -1)
@@ -85,6 +93,7 @@ def render(sample_fn: SampleFn, height: int, width: int,
     sigma = unflatten(out_coarse['sigma'])[..., 0]
     rgb = unflatten(out_coarse['rgb'])
     overflow_resid = out_coarse.get('overflow_resid')
+    coords = unflatten(out_coarse['coords']) if compute_coords else None
 
     weights = compositing.render_volume_density_weights_only(
         sigma, ray_directions, depth_values).detach()
@@ -106,9 +115,12 @@ def render(sample_fn: SampleFn, height: int, width: int,
     depth_values = torch.cat((depth_values, z_samples), dim=-1)
     sigma = torch.cat((sigma, unflatten(out_fine['sigma'])[..., 0]), dim=-1)
     rgb = torch.cat((rgb, unflatten(out_fine['rgb'])), dim=-2)
+    if compute_coords:
+        coords = torch.cat((coords, unflatten(out_fine['coords'])), dim=-2)
 
-    rgb_map, depth_map, mask = compositing.render_volume_density(
-        sigma, rgb, ray_directions, depth_values,
+    rgb_map, depth_map, mask, semantic_map = compositing.composite(
+        sigma, rgb, ray_directions, depth_values, semantics=coords,
         white_background=white_background)
     return RenderOutput(rgb=rgb_map, depth=depth_map, mask=mask,
+                        semantics=semantic_map,
                         overflow_resid=overflow_resid)

@@ -14,7 +14,10 @@ weights into the port (`load_lpips_state_dicts`): the same two dicts that
 the JAX package's `convert_lpips` takes. `random_encoder_state_dict` draws
 a reference-format bootstrap encoder state dict from a seed, for
 `BootstrapEncoder.load_state_dict` here and `convert_bootstrap_encoder`
-in the JAX package. This module holds numpy only and imports no JAX.
+in the JAX package; `random_inception_state_dict` does the same for
+pytorch-fid's FID InceptionV3 (`load_inception_state_dict` here,
+`convert_inception` there). This module holds numpy only and imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -225,3 +228,41 @@ def random_encoder_state_dict(seed: int, latent_dim: int = 512,
             draw = draw / np.sqrt(shape[1])
         sd[key] = draw.astype(np.float32)
     return sd
+
+
+def random_inception_state_dict(seed: int) -> Dict[str, np.ndarray]:
+    """pytorch-fid-format FID InceptionV3 weights drawn from `seed`:
+    He-normal convolutions over their fan in, batch-norm scales 1 +
+    N(0, 0.1^2), biases and running means N(0, 0.1^2), running variances
+    uniform in [0.5, 1.5], so that every normalization does something and
+    the activations keep their scale through the network."""
+    from nerf_from_image_tpu_torch.models.inception import InceptionV3FID
+    shapes = {k: tuple(v.shape) for k, v in
+              InceptionV3FID(device='meta').state_dict().items()}
+    rng = np.random.default_rng(seed)
+    sd: Dict[str, np.ndarray] = {}
+    for key, shape in shapes.items():
+        if key.endswith('.conv.weight'):
+            draw = rng.standard_normal(shape) * np.sqrt(
+                2.0 / np.prod(shape[1:]))
+        elif key.endswith('.bn.weight'):
+            draw = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif key.endswith('.bn.running_var'):
+            draw = rng.uniform(0.5, 1.5, shape)
+        else:  # bn.bias, bn.running_mean
+            draw = 0.1 * rng.standard_normal(shape)
+        sd[key] = draw.astype(np.float32)
+    return sd
+
+
+def load_inception_state_dict(model: nn.Module,
+                              state_dict: Mapping[str, Any]) -> None:
+    """Copies pytorch-fid FID InceptionV3 weights into a port
+    `InceptionV3FID` in place. Keys the FID activations do not use (the
+    classifier `fc.*`, `AuxLogits.*`, batch norms' `num_batches_tracked`)
+    are ignored; every key of the model must be present."""
+    tensors = {k: torch.tensor(np.asarray(v, np.float32))
+               for k, v in state_dict.items()
+               if not k.startswith(('fc.', 'AuxLogits.')) and
+               not k.endswith('num_batches_tracked')}
+    model.load_state_dict(tensors, strict=True)

@@ -18,6 +18,7 @@ import torch
 from nerf_from_image_tpu_torch import device as device_lib
 from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
 from nerf_from_image_tpu_torch.models.generator import Generator
+from nerf_from_image_tpu_torch.models.inception import InceptionV3FID
 from nerf_from_image_tpu_torch.models.lpips import LPIPS
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -95,4 +96,6 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         BootstrapEncoder(512, depths=(1, 1, 1, 1), embed_dims=(8, 8, 8, 8),
                          num_heads=(1, 1, 1, 1), head_width=8)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        InceptionV3FID()
     assert device_lib.resolve_device('cpu') == torch.device('cpu')

@@ -259,12 +259,14 @@ def test_sdf_losses_draw_from_a_generator(pair):
     planes_cl = torch.tensor(planes).permute(0, 1, 3, 4, 2).contiguous()
     draw = lambda: port.sdf_losses(  # noqa: E731
         planes_cl, torch.Generator().manual_seed(5),
-        ('sdf_eikonal_loss', 'total_variation_loss'), nstrata=NSTRATA)
+        ('sdf_eikonal_loss', 'sdf_distance_loss', 'total_variation_loss'),
+        nstrata=NSTRATA)
     a, b = draw(), draw()
+    assert len(a) == 3
     for key in a:
         assert torch.isfinite(a[key]).all() and torch.equal(a[key], b[key])
     with pytest.raises(NotImplementedError):
-        port.sdf_losses(planes_cl, torch.Generator(), ('sdf_distance_loss',))
+        port.sdf_losses(planes_cl, torch.Generator(), ('semantics',))
 
 
 @pytest.mark.parametrize('n', [3 * 4096, 16 * 8, 2 * 4096 + 512])
