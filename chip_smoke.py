@@ -27,6 +27,13 @@ samples):
   steps 0 and 30 (front and novel views, their renders through the fused
   sample + decoder tail), the consolidated report with FID (a random
   InceptionV3 in the reference's key format) and its files;
+- the inversion CLI end to end (`python -m nerf_from_image_tpu_torch.cli
+  .run --dataset p3d_car --run_inversion ...`, called in this process at
+  its default flags): a p3d_car fixture written to disk (20 test images
+  in car_val.mat's layout, 24 train images), a reference-format GAN
+  checkpoint and encoder file, the published weight files' layouts, the
+  batches of 8, 8 and 4 with each next batch's PnP on a worker thread
+  while the card runs the steps, and the report's files;
 - SDF pretraining at the CLI's batch of 32 (the same generator, p3d_car's
   box, 31^3 stratified points an image, distance + 0.1 eikonal, Adam at
   0.0025, then EMA <- params);
@@ -75,6 +82,16 @@ Phases, each printed as one JSON line:
              FID statistics, fid_front and fid_random, the Inception
              forward's ms per batch, and the report checkpoint and files
              written and read back in a temporary directory
+  cli        the inversion CLI through `cli.run.main`: the fixture, the
+             checkpoint and weight files written in a temporary directory,
+             then the whole run; per batch the launches of the steps (B1
+             60, B2 60, B3 60 forward and 30 backward) and of the two
+             evaluations (B5a 8), counted around each call; per batch the
+             wall time, encoder, evaluation and step ms, PnP's seconds on
+             its thread and the main thread's wait for it; the dataset
+             load, the real images' statistics and the report's
+             consolidation; the report's 20 rows, finite means, FIDs and
+             logged scalars
   pretrain   one warm-up step, then 5 pretraining steps (counts reset just
              before and read just after: no kernel runs), ms per step, peak
              memory, dist and eik per step, the EMA a copy of G; one step
@@ -114,9 +131,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nerf_from_image_tpu_torch import config as port_config
+from nerf_from_image_tpu_torch.cli import run as cli_run
 from nerf_from_image_tpu_torch.core import augment
 from nerf_from_image_tpu_torch.core import pose as pose_lib
 from nerf_from_image_tpu_torch.core import rays as rays_lib
+from nerf_from_image_tpu_torch.data import fixtures
+from nerf_from_image_tpu_torch.data import loaders
 from nerf_from_image_tpu_torch.invert import optimizer as inv
 from nerf_from_image_tpu_torch.invert import pipeline
 from nerf_from_image_tpu_torch.invert import pnp
@@ -133,7 +154,9 @@ from nerf_from_image_tpu_torch.render.renderer import normalize, render
 from nerf_from_image_tpu_torch.train import encoder as distill
 from nerf_from_image_tpu_torch.train import gan
 from nerf_from_image_tpu_torch.train import pretrain
+from nerf_from_image_tpu_torch.utils import checkpoint
 from nerf_from_image_tpu_torch.utils import convert
+from nerf_from_image_tpu_torch.utils import weights
 
 # bench.py's operating point.
 BATCH = 8
@@ -218,6 +241,26 @@ PIPELINE_STEPS = 30
 COORD_SPREAD = 0.5
 PNP_MASK_CUT = 0.9  # invert/pnp.estimate_poses_batch keeps mask > 0.9
 PERM_BBOX = ((-0.9, -0.9), (1.8, 1.8))  # the novel views' crop
+# The inversion CLI (`python -m nerf_from_image_tpu_torch.cli.run
+# --dataset p3d_car --run_inversion ...`) at its default flags on a p3d_car
+# fixture on disk: 20 test images (batches of 8, 8 and a straggler of 4)
+# and 24 train images, 240 x 320 PNGs, so that the 256^2 train load
+# (augment_p 0.8 doubles 128) and the 128^2 bbox crops both shrink real
+# pixels. Launches per batch: the 30 steps run B1 and B2 twice a step, B3
+# forward twice and backward once; each of the two evaluations runs B5a 4
+# times (two passes of the front and of the novel-view render).
+CLI_TEST_IMAGES = 20
+CLI_TRAIN_IMAGES = 24
+CLI_IMAGE_HW = (240, 320)
+CLI_STEPS = 30
+CLI_STEP_LAUNCHES = {'triplane_sample': 2 * CLI_STEPS,
+                     'triplane_sample_grad': 2 * CLI_STEPS,
+                     'warp_forward': 2 * CLI_STEPS,
+                     'warp_backward': CLI_STEPS}
+CLI_EVAL_LAUNCHES = {'triplane_sample_fused': 4}
+# The main thread's wait for a prefetched batch's PnP, as a share of the
+# PnP's own time, that the overlap is meant to stay under.
+CLI_WAIT_SHARE = 0.1
 
 # GAN training: p3d_car as the JAX CLI builds it
 # (nerf_from_image_tpu/config.py:181-186, 224-228), one card's batch of 8.
@@ -2221,6 +2264,170 @@ def pipeline_phase(rows: dict, gen: Generator, lpips: LPIPS) -> None:
          report_text=report_text.strip().splitlines())
 
 
+def cli_assets(root: str) -> dict:
+    """What a user of the CLI brings, written under `root` from seeds: the
+    p3d_car fixture, a reference-format GAN checkpoint of the full-width
+    generator (EMA = G), a reference-format MiT-B5 encoder file (its head
+    calibrated on the fixture's test crops, see COORD_SPREAD) and the
+    published weight files' layouts under weights/ (random LPIPS and
+    Inception). Returns the paths and what each took."""
+    seconds = {}
+    t = time.perf_counter()
+    data = os.path.join(root, 'data')
+    fixtures.write_p3d_car(data, CLI_TRAIN_IMAGES, CLI_TEST_IMAGES,
+                           CLI_IMAGE_HW, seed=12)
+    seconds['fixture'] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    gan_path = os.path.join(root, 'gan.pth')
+    checkpoint.save(checkpoint.gan_checkpoint(
+        gan.init_train_state(TRAIN_CFG, device='cpu', seed=0)), gan_path)
+    seconds['gan_checkpoint'] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    test = loaders.load_dataset(port_config.parse_args(
+        ['--dataset', 'p3d_car', '--run_inversion', '--data_path',
+         data]))[3]
+    images = torch.from_numpy(np.ascontiguousarray(
+        test.images[:BATCH].transpose(0, 3, 1, 2))).cuda()
+    encoder = BootstrapEncoder(GEN_KWARGS['latent_dim'], device='cuda')
+    encoder.load_state_dict({k: torch.from_numpy(v) for k, v in
+                             convert.random_encoder_state_dict(11).items()})
+    foreground = float((images[:, 3] > 0.5).float().mean())
+    calibrate_encoder_head(encoder.eval(), images[:, :3].contiguous(),
+                           foreground)
+    enc_path = os.path.join(root, 'encoder.pth')
+    torch.save({k: v.cpu() for k, v in encoder.state_dict().items()},
+               enc_path)
+    del encoder, images
+    seconds['encoder_file'] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    wdir = os.path.join(root, 'out', 'weights')
+    os.makedirs(wdir)
+    for name, sd in zip(weights.LPIPS_FILES + (weights.INCEPTION_FILE,),
+                        (*convert.random_lpips_state_dicts(0),
+                         convert.random_inception_state_dict(0))):
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+                   os.path.join(wdir, name))
+    seconds['weight_files'] = time.perf_counter() - t
+    return {'data': data, 'gan': gan_path, 'encoder': enc_path,
+            'root': os.path.join(root, 'out'),
+            'target_foreground': foreground, 'seconds': seconds}
+
+
+def cli_phase() -> None:
+    """The inversion CLI end to end, in this process, through
+    `cli.run.main` with the default flags (batches of 8, 30 steps,
+    checkpoints 0 and 30, FID, bf16): the p3d_car test split from disk,
+    the EMA weights from the GAN checkpoint, the encoder file, the weight
+    files, the report's files. Launches are counted around each call of
+    the refinement steps and of the evaluation (never B5a in the steps
+    nor B1 in an evaluation); each batch's times are the CLI's own."""
+    started = time.perf_counter()
+    calls = []
+    originals = (inv.run_inversion, pipeline.evaluate_checkpoint,
+                 loaders.load_dataset)
+
+    def counted(kind, fn):
+        def wrapper(*args, **kwargs):
+            before = counts()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            calls.append((kind, time.perf_counter() - t, {
+                name: n - before[name] for name, n in counts().items()}))
+            return out
+        return wrapper
+
+    with tempfile.TemporaryDirectory() as tmp:
+        assets = cli_assets(tmp)
+        argv = ['--dataset', 'p3d_car', '--run_inversion', '--resume_from',
+                assets['gan'], '--coord_resume_from', assets['encoder'],
+                '--root_path', assets['root'], '--data_path',
+                assets['data']]
+        inv.run_inversion = counted('steps', originals[0])
+        pipeline.evaluate_checkpoint = counted('evaluation', originals[1])
+        loaders.load_dataset = counted('dataset', originals[2])
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            out = cli_run.main(argv)
+            cli_s = time.perf_counter() - t0
+            total = counts()
+        finally:
+            (inv.run_inversion, pipeline.evaluate_checkpoint,
+             loaders.load_dataset) = originals
+        report_dir = out['report_dir']
+        report = dict(np.load(os.path.join(report_dir, 'report.npz')))
+        with open(os.path.join(report_dir, 'report.txt')) as f:
+            report_text = f.read()
+        with open(os.path.join(report_dir, 'scalars.jsonl')) as f:
+            tags = {json.loads(line)['tag'] for line in f}
+    torch.cuda.empty_cache()
+
+    batches = out['batches']
+    if [b['images'] for b in batches] != [8, 8, 4] or [
+            b['serial'] for b in batches] != [True, False, False]:
+        raise AssertionError(f'cli batches: {batches}')
+    per_batch = [c for c in calls if c[0] != 'dataset']
+    if [c[0] for c in per_batch] != ['evaluation', 'steps',
+                                     'evaluation'] * len(batches):
+        raise AssertionError(f'cli calls: {[c[0] for c in per_batch]}')
+    launches = []
+    for i in range(len(batches)):
+        ev0, steps, ev30 = (c[2] for c in per_batch[3 * i:3 * i + 3])
+        expect_launches(f'cli batch {i + 1} steps', steps,
+                        **CLI_STEP_LAUNCHES)
+        for ev in (ev0, ev30):
+            expect_launches(f'cli batch {i + 1} evaluation', ev,
+                            **CLI_EVAL_LAUNCHES)
+        launches.append({'steps': steps, 'evaluations': {
+            name: ev0[name] + ev30[name] for name in ev0}})
+    want = {name: sum(b['steps'][name] + b['evaluations'][name]
+                      for b in launches) for name in total}
+    if total != want:
+        raise AssertionError(f'cli launches {total}, per call {want}')
+
+    rows = {}
+    for step in (0, CLI_STEPS):
+        for key in ('ws', 'R', 's', 't2', 'z0', 'psnr', 'ssim', 'lpips',
+                    'iou'):
+            arr = report[f'{step}/{key}']
+            if arr.shape[0] != CLI_TEST_IMAGES or not np.all(
+                    np.isfinite(arr)):
+                raise AssertionError(f'report {step}/{key}: {arr.shape}')
+            rows[f'{step}/{key}'] = arr.shape[0]
+        for key in ('fid_front', 'fid_random', 'fid_front_test',
+                    'fid_random_test', 'psnr_avg', 'ssim_avg', 'lpips_avg',
+                    'iou_avg'):
+            if not np.isfinite(report[f'{step}/{key}']):
+                raise AssertionError(f'report {step}/{key} not finite')
+    for tag in ('monitor_b0/psnr', 'monitor_b0/grad_norm_z', 'report/psnr',
+                'report/fid_front', 'report/fid_random_test'):
+        if tag not in tags:
+            raise AssertionError(f'{tag} not in scalars.jsonl')
+
+    for b in batches:
+        b['pnp_wait_share'] = (None if b['pnp_wait_s'] is None else
+                               b['pnp_wait_s'] / b['pnp_s'])
+    dataset_s = sum(c[1] for c in calls if c[0] == 'dataset')
+    emit('cli', started, argv=[os.path.basename(a) for a in argv],
+         test_images=CLI_TEST_IMAGES, train_images=CLI_TRAIN_IMAGES,
+         image_hw=CLI_IMAGE_HW, assets_seconds=assets['seconds'],
+         target_foreground=assets['target_foreground'], cli_s=cli_s,
+         dataset_load_s=dataset_s, real_stats_s=out['real_stats_s'],
+         consolidate_s=out['consolidate_s'], batches=batches,
+         per_image_s=sum(b['wall_s'] for b in batches) / CLI_TEST_IMAGES,
+         wait_share_limit=CLI_WAIT_SHARE,
+         overlap_held=all(b['pnp_wait_share'] < CLI_WAIT_SHARE
+                          for b in batches[1:]),
+         launches=launches, report_rows=rows,
+         fid={step: {k: float(report[f'{step}/{k}']) for k in
+                     ('fid_front', 'fid_random')}
+              for step in (0, CLI_STEPS)},
+         report_text=report_text.strip().splitlines())
+
+
 def report_files_round_trip(report) -> dict:
     """The unconsolidated report through a report checkpoint in a
     temporary directory: every list back in order, with its index and
@@ -2273,6 +2480,8 @@ def main() -> None:
     inv_gen, lpips = inversion_models()
     inversion_step = inversion_phase(rows, inv_gen, lpips)
     pipeline_phase(rows, inv_gen, lpips)
+    cli_phase()
+    torch.cuda.empty_cache()
     train_steps = train_phase(rows)
     torch.cuda.empty_cache()
     pretrained, pretrain_step = pretrain_phase(rows)

@@ -4,13 +4,18 @@ report (PyTorch port of `nerf_from_image_tpu/invert/pipeline.py`).
 Per batch of target images, the bootstrap encoder predicts canonical
 coordinates, a mask and a latent w (`bootstrap_dispatch`, on the card);
 the native PnP solver recovers each camera on the host
-(`bootstrap_finish`); `init_inversion_params` turns both into the
-refinement's parameters; `evaluate_checkpoint` records the parameters
-and the front-view and novel-view metrics at a checkpoint step, with the
-Inception activations of both renders when the context holds an
-`InceptionV3FID`; `consolidate_report` averages them into the reference's
-report schema and turns the activations into FIDs against the real
-images' statistics (`compute_real_fid_stats`); `save_report` writes the
+(`bootstrap_finish`, or its two halves: `bootstrap_to_host` queues the
+copies of the coordinates and the mask behind the encoder and records an
+event, `bootstrap_pnp` waits for that event alone and solves, so that
+another thread can solve while the card runs later work);
+`init_inversion_params` turns both into the refinement's parameters;
+`evaluate_checkpoint` records the parameters and the front-view and
+novel-view metrics at a checkpoint step (the first `valid` rows of a
+padded batch only), with the Inception activations of both renders when
+the context holds an `InceptionV3FID`; `consolidate_report` averages them
+into the reference's report schema, turns the activations into FIDs
+against the real images' statistics (`compute_real_fid_stats`) and logs
+the means under `report/*` to a writer; `save_report` writes the
 report's files, and `save_report_checkpoint`/`load_report_checkpoint`
 keep a run's accumulated report for a resume.
 
@@ -69,22 +74,60 @@ def bootstrap_dispatch(encoder: BootstrapEncoder,
     return encoder(target_img[..., :3].permute(0, 3, 1, 2).contiguous())
 
 
+HostCopy = Tuple[torch.Tensor, torch.Tensor, Optional[torch.cuda.Event]]
+
+
+def bootstrap_to_host(enc_out: EncoderOutput) -> HostCopy:
+    """Queues the host copies of the encoder's coordinates and mask on the
+    current stream, directly behind the encoder: on the card into pinned
+    buffers without waiting, with an event recorded after them; on the
+    CPU the tensors themselves and no event. Returns (coords, mask,
+    event)."""
+    coords, mask, _ = enc_out
+    if not coords.is_cuda:
+        return coords, mask, None
+    host = []
+    for t in (coords, mask):
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t, non_blocking=True)
+        host.append(buf)
+    event = torch.cuda.Event()
+    event.record()
+    return host[0], host[1], event
+
+
+def bootstrap_pnp(host: HostCopy, focal_guesses: Optional[np.ndarray]):
+    """Waits for `bootstrap_to_host`'s copies (its event alone, not for
+    work queued after it), then runs PnP on the host; callable from any
+    thread. Returns (coords, mask) as numpy and PnP's (cam2world,
+    focal, errors)."""
+    coords, mask, event = host
+    if event is not None:
+        event.synchronize()
+    coords_np, mask_np = coords.numpy(), mask.numpy()
+    return (coords_np, mask_np,
+            *pnp.estimate_poses_batch(coords_np, mask_np, focal_guesses))
+
+
+def initial_latent(enc_out: EncoderOutput, z_avg: torch.Tensor,
+                   lr_gain_z: float) -> torch.Tensor:
+    """z_init (B, num_ws, 512) on the encoder's device: the encoder's w
+    over every slot of `z_avg`, divided by the gain."""
+    return enc_out[2].float().expand(-1, z_avg.shape[1], -1) / lr_gain_z
+
+
 def bootstrap_finish(enc_out: EncoderOutput, focal_guesses: Optional[
         np.ndarray], z_avg: torch.Tensor, lr_gain_z: float):
     """Host half: waits for the encoder's outputs, then runs PnP.
 
-    Returns (coords, mask) as numpy arrays, z_init (B, num_ws, 512) on
-    the encoder's device (the encoder's w over every slot of `z_avg`,
-    divided by the gain), and the PnP results (cam2world (B, 4, 4),
-    focal (B,) or None, errors (B,)) as numpy.
+    Returns (coords, mask) as numpy arrays, z_init (`initial_latent`),
+    and the PnP results (cam2world (B, 4, 4), focal (B,) or None, errors
+    (B,)) as numpy.
     """
-    coords, mask, w = enc_out
-    coords_np = coords.cpu().numpy()
-    mask_np = mask.cpu().numpy()
-    cam2world, focal, errors = pnp.estimate_poses_batch(coords_np, mask_np,
-                                                        focal_guesses)
-    z_init = w.float().expand(-1, z_avg.shape[1], -1) / lr_gain_z
-    return coords_np, mask_np, z_init, cam2world, focal, errors
+    coords_np, mask_np, cam2world, focal, errors = bootstrap_pnp(
+        bootstrap_to_host(enc_out), focal_guesses)
+    return (coords_np, mask_np, initial_latent(enc_out, z_avg, lr_gain_z),
+            cam2world, focal, errors)
 
 
 def bootstrap_batch(encoder: BootstrapEncoder, target_img: torch.Tensor,
@@ -151,8 +194,9 @@ def evaluate_checkpoint(ctx: EvalContext, cfg: inv_opt.InversionConfig,
                         target_bbox_fid: Optional[torch.Tensor],
                         gt_cam2world: Optional[torch.Tensor],
                         perm_cameras=None,
-                        target_img_random: Optional[torch.Tensor] = None
-                        ) -> None:
+                        target_img_random: Optional[torch.Tensor] = None,
+                        compute_rot_error: bool = True,
+                        valid: Optional[int] = None) -> None:
     """Appends the metrics of one checkpoint step to `report_entry`.
 
     The front view renders the parameters from their own camera (with
@@ -162,10 +206,13 @@ def evaluate_checkpoint(ctx: EvalContext, cfg: inv_opt.InversionConfig,
     `perm_cameras` = (cam2world, focal, center, bbox), the latent is also
     rendered from those cameras and scored against `target_img_random`.
     With `ctx.inception`, each render's Inception activations are
-    recorded too. Every value is appended as a numpy array.
+    recorded too. Every value is appended as a numpy array, of its first
+    `valid` rows when given: a straggler batch is padded to the batch
+    size, and the padding never enters the report.
     """
     def app(key, value):
-        report_entry[key].append(value.detach().cpu().numpy())
+        arr = value.detach().cpu().numpy()
+        report_entry[key].append(arr if valid is None else arr[:valid])
 
     app('ws', params.z * cfg.lr_gain_z)
     if params.z0 is not None:
@@ -183,7 +230,7 @@ def evaluate_checkpoint(ctx: EvalContext, cfg: inv_opt.InversionConfig,
         app(k, v)
     if ctx.inception is not None:
         app('inception_activations_front', ctx.inception(_to01(out.rgb)))
-    if gt_cam2world is not None:
+    if compute_rot_error and gt_cam2world is not None:
         app('rot_error', pose_lib.rotation_matrix_distance(cam, gt_cam2world))
 
     if perm_cameras is None:
@@ -207,13 +254,20 @@ def evaluate_checkpoint(ctx: EvalContext, cfg: inv_opt.InversionConfig,
         app('inception_activations_random', ctx.inception(_to01(out_r.rgb)))
 
 
-def consolidate_report(report, train_fid_stats=None, test_fid_stats=None
+def consolidate_report(report, train_fid_stats=None, test_fid_stats=None,
+                       writer=None
                        ) -> Tuple[Dict[int, Dict[str, object]], str]:
     """Joins each entry's batches, adds `<metric>_avg` for the report's
     scalars, and, with `train_fid_stats` (mu, sigma), `fid_front` and
     `fid_random` from the recorded activations (and their `_test` forms
     against `test_fid_stats`); the activations are dropped either way.
-    Returns (report, report text)."""
+    With `writer` (`utils.logging.SummaryWriter`), each mean and FID is
+    also logged as `report/<name>` at the entry's step (reference
+    run.py:2366, 2379-2386). Returns (report, report text)."""
+    def log(name, value, step):
+        if writer is not None:
+            writer.add_scalar(f'report/{name}', value, step)
+
     lines: List[str] = []
     for iter_num, entry in report.items():
         for k in list(entry.keys()):
@@ -228,6 +282,7 @@ def consolidate_report(report, train_fid_stats=None, test_fid_stats=None
                 val = float(np.mean(entry[elem]))
                 line += f' {elem} {val:.05f}'
                 entry[f'{elem}_avg'] = val
+                log(elem, val, iter_num)
         for src_key, dst_key in (('inception_activations_front', 'fid_front'),
                                  ('inception_activations_random',
                                   'fid_random')):
@@ -239,11 +294,13 @@ def consolidate_report(report, train_fid_stats=None, test_fid_stats=None
                                                      *train_fid_stats)
             entry[dst_key] = val
             line += f' {dst_key} {val:.02f}'
+            log(dst_key, val, iter_num)
             if test_fid_stats is not None:
                 val_t = fid_lib.calculate_frechet_distance(*stats,
                                                            *test_fid_stats)
                 entry[dst_key + '_test'] = val_t
                 line += f' {dst_key}_test {val_t:.02f}'
+                log(dst_key + '_test', val_t, iter_num)
         lines.append(line + '\n')
     return report, ''.join(lines)
 

@@ -8,30 +8,23 @@ training focals); an image with fewer than four foreground pixels or no
 pose of positive depth takes the dummy pose (error 10, focal 1). It runs
 on the host with numpy, as in the JAX package.
 
-The solver is built from `native/pnp.cc` with the host C++ compiler
-(`-O3 -fPIC -shared -std=c++17`, the flags of `native/Makefile`) into
-`build/native/libnfi_pnp-<hash>.so` at the root of the checkout (listed
-in .gitignore) at its first use, and loaded with ctypes. The name carries
-a hash of the source and the flags, so an edited source is never served
-by a stale build.
+The solver is built from `native/pnp.cc` by `utils/native.py` into
+`build/native/libnfi_pnp-<hash>.so` at its first use, and loaded with
+ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-REPO = pathlib.Path(__file__).resolve().parents[2]
-SOURCE = REPO / 'native' / 'pnp.cc'
-BUILD_DIR = REPO / 'build' / 'native'
-CXX_FLAGS = ('-O3', '-fPIC', '-shared', '-std=c++17')
+from nerf_from_image_tpu_torch.utils import native
+
+REPO = native.REPO
+SOURCE = native.NATIVE_DIR / 'pnp.cc'
 # The error the solver reports for the dummy pose.
 DUMMY_ERROR = 10.0
 
@@ -39,16 +32,7 @@ _library = None
 
 
 def library_path() -> pathlib.Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() +
-                            ' '.join(CXX_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f'libnfi_pnp-{digest[:12]}.so'
-
-
-def _compiler() -> str:
-    for name in (os.environ.get('CXX'), 'g++', 'c++'):
-        if name and shutil.which(name):
-            return shutil.which(name)
-    raise RuntimeError('no C++ compiler found (set CXX or PATH)')
+    return native.library_path(SOURCE, 'libnfi_pnp')
 
 
 def load_library() -> ctypes.CDLL:
@@ -59,16 +43,7 @@ def load_library() -> ctypes.CDLL:
     global _library
     if _library is not None:
         return _library
-    path = library_path()
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f'.tmp{os.getpid()}.so')
-        proc = subprocess.run([_compiler(), *CXX_FLAGS, '-o', str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f'PnP build failed ({proc.returncode}):\n'
-                               f'{proc.stdout}{proc.stderr}')
-        os.replace(tmp, path)
+    path = native.build(SOURCE, 'libnfi_pnp')
     lib = ctypes.CDLL(str(path))
     lib.nfi_solve_pnp_batch.argtypes = [
         ctypes.POINTER(ctypes.c_double),  # coords

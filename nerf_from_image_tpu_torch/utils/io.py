@@ -1,9 +1,9 @@
-"""The .npz files of the inversion report (a copy of the local-path part
-of `save_npz` and `load_npz` in `nerf_from_image_tpu/utils/io.py`, which
-the port may not import).
+"""Host-side IO helpers (copies of the local-path part of
+`nerf_from_image_tpu/utils/io.py`, which the port may not import): the
+.npz files of the inversion report and the endless batch sampler.
 
-The JAX package's versions also take gs:// paths; these take local paths
-only, so the report's other file calls are Python's own.
+The JAX package's file functions also take gs:// paths; these take local
+paths only, so the port's other file calls are Python's own.
 """
 
 from __future__ import annotations
@@ -26,3 +26,40 @@ def load_npz(path: str) -> dict:
     """Every array of an .npz file, loaded."""
     with open(path, 'rb') as f:
         return dict(np.load(f))
+
+
+class EndlessSampler:
+    """Shuffled endless index stream (reference lib/utils.py:163-192).
+
+    Deterministic given the numpy RandomState; its state is (permutation,
+    position), read by `get_state` and restored by `set_state`.
+    """
+
+    def __init__(self, dataset_size: int, rng: np.random.RandomState):
+        self.dataset_size = dataset_size
+        self.rng = rng
+        self._perm = rng.permutation(dataset_size)
+        self._pos = 0
+
+    def __call__(self, batch_size: int) -> np.ndarray:
+        out = []
+        while len(out) < batch_size:
+            if self._pos >= self.dataset_size:
+                self._perm = self.rng.permutation(self.dataset_size)
+                self._pos = 0
+            take = min(batch_size - len(out), self.dataset_size - self._pos)
+            out.extend(self._perm[self._pos:self._pos + take].tolist())
+            self._pos += take
+        return np.asarray(out)
+
+    def get_state(self):
+        return {'perm': self._perm.copy(), 'pos': self._pos,
+                'rng': self.rng.get_state()}
+
+    def set_state(self, state):
+        """Restores the permutation and position, and the RandomState when
+        the state holds one."""
+        self._perm = np.asarray(state['perm'])
+        self._pos = int(state['pos'])
+        if 'rng' in state:
+            self.rng.set_state(state['rng'])
