@@ -25,15 +25,25 @@ samples):
   bootstrap encoder (MiT-B5 SegFormer), host PnP, the initial
   parameters, 30 refinement steps with the checkpoint evaluations at
   steps 0 and 30 (front and novel views, their renders through the fused
-  sample + decoder tail), the consolidated report with FID (a random
-  InceptionV3 in the reference's key format) and its files;
+  sample + decoder tail, the Inception activations of a random
+  InceptionV3 in the reference's key format), the consolidated report
+  and its files;
+- a float32 generator's render and inversion step (the inversion CLI's
+  precision), the kernels reading its planes rounded to bf16;
 - the inversion CLI end to end (`python -m nerf_from_image_tpu_torch.cli
   .run --dataset p3d_car --run_inversion ...`, called in this process at
-  its default flags): a p3d_car fixture written to disk (20 test images
-  in car_val.mat's layout, 24 train images), a reference-format GAN
-  checkpoint and encoder file, the published weight files' layouts, the
-  batches of 8, 8 and 4 with each next batch's PnP on a worker thread
-  while the card runs the steps, and the report's files;
+  its default flags, the generator in float32): a p3d_car fixture
+  written to disk (20 test images in car_val.mat's layout, 24 train
+  images), a reference-format GAN checkpoint and encoder file, the
+  published weight files' layouts, the batches of 8, 8 and 4 with each
+  next batch's PnP on a worker thread while the card runs the steps, and
+  the report's files with FID;
+- the GAN-training CLI end to end (`python -m nerf_from_image_tpu_torch
+  .cli.run --dataset p3d_car ...`, in this process at its default flags:
+  batch 32, bf16) on the same fixture and weight files: a fresh run
+  (1000 SDF pretraining steps, iterations 0-3, the iteration-3
+  evaluation with FID and the image families with normals and
+  semantics, `latest` and `best`) and a resume to iteration 8;
 - SDF pretraining at the CLI's batch of 32 (the same generator, p3d_car's
   box, 31^3 stratified points an image, distance + 0.1 eikonal, Adam at
   0.0025, then EMA <- params);
@@ -78,10 +88,13 @@ Phases, each printed as one JSON line:
              evaluation -> report, ms per stage, launch counts per stage
              (B5a only in the evaluations, never B1 there; never B5a in the
              steps), the report's numbers and PnP's fallback count; the
-             Inception activations of both evaluations, the real targets'
-             FID statistics, fid_front and fid_random, the Inception
+             Inception activations of both evaluations, the Inception
              forward's ms per batch, and the report checkpoint and files
-             written and read back in a temporary directory
+             written and read back in a temporary directory (the report
+             without FID: the cli phase's holds it)
+  float32    a float32 generator's render (B1 2) and one inversion step
+             (B1 2, B2 2, B3 2 + 1) against the plain versions fed the same
+             bf16-rounded planes, and the step's ms
   cli        the inversion CLI through `cli.run.main`: the fixture, the
              checkpoint and weight files written in a temporary directory,
              then the whole run; per batch the launches of the steps (B1
@@ -91,7 +104,17 @@ Phases, each printed as one JSON line:
              its thread and the main thread's wait for it; the dataset
              load, the real images' statistics and the report's
              consolidation; the report's 20 rows, finite means, FIDs and
-             logged scalars
+             logged scalars; the generator's dtype (float32 at the
+             default --compute_dtype bfloat16)
+  train_cli  the GAN-training CLI through `cli.run.main` on the cli
+             phase's fixture: a fresh run of 4 iterations and a resume to
+             8; launches around every G step (B1 2, B4 2), D step (B1 2),
+             pretraining call (none) and the evaluation (B1 16, B2 6 with
+             the training images); G and D ms (CUDA events), pretraining,
+             evaluation (render, Inception, `sqrtm`) and checkpoint
+             seconds, peak memory; the checkpoints' iterations (4 and 8),
+             the logged scalars (finite) and image tags; the evaluation's
+             first render with normals against the plain versions
   pretrain   one warm-up step, then 5 pretraining steps (counts reset just
              before and read just after: no kernel runs), ms per step, peak
              memory, dist and eik per step, the EMA a copy of G; one step
@@ -132,6 +155,7 @@ import torch
 import torch.nn.functional as F
 
 from nerf_from_image_tpu_torch import config as port_config
+from nerf_from_image_tpu_torch.cli import inversion as cli_inversion
 from nerf_from_image_tpu_torch.cli import run as cli_run
 from nerf_from_image_tpu_torch.core import augment
 from nerf_from_image_tpu_torch.core import pose as pose_lib
@@ -152,10 +176,12 @@ from nerf_from_image_tpu_torch.ops import triplane_cuda
 from nerf_from_image_tpu_torch.ops import warp
 from nerf_from_image_tpu_torch.render.renderer import normalize, render
 from nerf_from_image_tpu_torch.train import encoder as distill
+from nerf_from_image_tpu_torch.train import eval as train_eval
 from nerf_from_image_tpu_torch.train import gan
 from nerf_from_image_tpu_torch.train import pretrain
 from nerf_from_image_tpu_torch.utils import checkpoint
 from nerf_from_image_tpu_torch.utils import convert
+from nerf_from_image_tpu_torch.utils import logging as port_logging
 from nerf_from_image_tpu_torch.utils import weights
 
 # bench.py's operating point.
@@ -262,6 +288,39 @@ CLI_EVAL_LAUNCHES = {'triplane_sample_fused': 4}
 # PnP's own time, that the overlap is meant to stay under.
 CLI_WAIT_SHARE = 0.1
 
+# The GAN-training CLI (`cli.run.main` without --run_inversion) at its
+# default flags on the cli phase's fixture: a fresh run of TRAIN_CLI_ITERS[0]
+# iterations (SDF pretraining first), then a resume to TRAIN_CLI_ITERS[1].
+# Launches: a G step renders (B1, coarse and fine) and backpropagates to
+# the planes (B4); a D step renders its fakes (B1). The iteration-3
+# evaluation renders the 24 train-eval images in batches of 8 (B1 per
+# pass; the first batch also asks for normals, B1 again and B2's
+# coordinate gradient per pass) and then two training-image renders with
+# normals (B1 4 and B2 2 each). Pretraining runs no kernel.
+TRAIN_CLI_ITERS = (4, 8)
+TRAIN_CLI_G = {'triplane_sample': 2, 'triplane_sample_grad_planes': 2}
+TRAIN_CLI_D = {'triplane_sample': 2}
+TRAIN_CLI_EVAL = {'triplane_sample': 8, 'triplane_sample_grad': 2}
+TRAIN_CLI_IMAGES = {'triplane_sample': 8, 'triplane_sample_grad': 4}
+# The scalars JAX's loop logs at iteration 0 (a G step; every 100) and its
+# evaluator at 3, and the image families of the evaluation.
+TRAIN_CLI_SCALARS = {
+    0: ('loss/g', 'loss/eikonal', 'loss/tv', 'loss/entropy', 'grad_norm/g',
+        'img_per_sec', 'augment/p', 'sdf/beta', 'sdf/alpha', 'sdf/beta_ema',
+        'sdf/alpha_ema'),
+    3: ('generation/fid_untrunc',)}
+TRAIN_CLI_IMAGE_TAGS = (
+    'img_eval_gen/static_untrunc', 'img_eval_gen/static_normals_untrunc',
+    'img_eval_gen/static_semantics_untrunc', 'img/ref', 'img/rgb',
+    'img/depth', 'img/mask', 'img/normals', 'img/inference',
+    'img/inference_normals', 'img/inference_semantics')
+# The evaluation's first render (batch 8, normals and semantics) through
+# the kernels against the same render through the plain versions, both on
+# the trained EMA's bf16 planes: rgb, mask and semantics at RENDER_ATOL;
+# the normal map where the mask is above 0.5 at NORMAL_ATOL, the step
+# checks' 5e-2 for gradients (a normal is a normalized gradient).
+NORMAL_ATOL = 5e-2
+
 # GAN training: p3d_car as the JAX CLI builds it
 # (nerf_from_image_tpu/config.py:181-186, 224-228), one card's batch of 8.
 TRAIN_CFG = gan.GANConfig(
@@ -288,6 +347,8 @@ D_STEP_LAUNCHES = dict(G_STEP_LAUNCHES, triplane_sample_grad_planes=0)
 # and then STAGE_STEPS timed steps each.
 STAGE_BATCH = 32
 STAGE_STEPS = 5
+# Pretraining's timed steps: the training CLI's fresh run times all 1000.
+PRETRAIN_TIMED_STEPS = 2
 PRETRAIN_CFG = dataclasses.replace(TRAIN_CFG, batch_size=STAGE_BATCH)
 PRETRAIN_LR = 0.0025  # config.py:38
 PRETRAIN_EIKONAL = 0.1  # config.py:46
@@ -1863,7 +1924,8 @@ def pretrain_check(state: gan.GANTrainState, cfg: gan.GANConfig) -> dict:
 
 def pretrain_phase(rows: dict):
     """SDF pretraining at the CLI's batch on the full-width generator:
-    one warm-up call of one step, then one call of STAGE_STEPS steps (the
+    one warm-up call of one step, then one call of PRETRAIN_TIMED_STEPS
+    steps (the
     loop's Adam is fresh in each call). Returns the state and a
     one-step call to trace."""
     started = time.perf_counter()
@@ -1883,9 +1945,9 @@ def pretrain_phase(rows: dict):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    dist, eik = run(STAGE_STEPS)
+    dist, eik = run(PRETRAIN_TIMED_STEPS)
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / STAGE_STEPS
+    step_ms = (time.perf_counter() - t0) * 1e3 / PRETRAIN_TIMED_STEPS
     launched = counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expect_launches('pretraining steps', launched)
@@ -1900,7 +1962,7 @@ def pretrain_phase(rows: dict):
     check = pretrain_check(state, cfg)
     emit('pretrain', started, batch=cfg.batch_size, nstrata=pretrain.NSTRATA,
          points_per_image=(pretrain.NSTRATA - 1) ** 3, lr=PRETRAIN_LR,
-         eikonal=PRETRAIN_EIKONAL, steps=STAGE_STEPS, step_ms=step_ms,
+         eikonal=PRETRAIN_EIKONAL, steps=PRETRAIN_TIMED_STEPS, step_ms=step_ms,
          images_per_s=cfg.batch_size / (step_ms / 1e3), peak_gb=peak_gb,
          launches=launched, dist=dist, eik=eik, ema_is_a_copy=True,
          cpu_check=check)
@@ -2188,9 +2250,6 @@ def pipeline_phase(rows: dict, gen: Generator, lpips: LPIPS) -> None:
     inception = InceptionV3FID(device=dev)
     convert.load_inception_state_dict(inception,
                                       convert.random_inception_state_dict(0))
-    real_stats = timed('real FID statistics', lambda: (
-        pipeline.compute_real_fid_stats(target.cpu().numpy(), inception,
-                                        batch_size=BATCH)))
     with torch.no_grad():
         inception_ms = time_cuda(lambda: inception(
             target[..., :3].permute(0, 3, 1, 2) / 2 + 0.5), 5)
@@ -2231,12 +2290,10 @@ def pipeline_phase(rows: dict, gen: Generator, lpips: LPIPS) -> None:
                 raise AssertionError(f'{key} at {step}: '
                                      f'{[a.shape for a in acts]}')
     files = report_files_round_trip(report)
+    # Without the real statistics: the cli phase's report holds FID (its
+    # matrix square roots take about 12 s each on the host).
     report, report_text = timed('consolidate', lambda: (
-        pipeline.consolidate_report(report, real_stats)))
-    fids = {step: {k: float(entry[k]) for k in ('fid_front', 'fid_random')}
-            for step, entry in report.items()}
-    if not all(np.isfinite(v) for f in fids.values() for v in f.values()):
-        raise AssertionError(f'FID not finite: {fids}')
+        pipeline.consolidate_report(report)))
     files.update(report_save_round_trip(report, report_text))
 
     metrics = {k: v.float().cpu().tolist() for k, v in metrics.items()}
@@ -2259,7 +2316,7 @@ def pipeline_phase(rows: dict, gen: Generator, lpips: LPIPS) -> None:
          empty_mask_fallbacks=int(np.sum(dummy == pnp.DUMMY_ERROR)),
          target_foreground=foreground,
          mask_pass_share=float((mask_np > PNP_MASK_CUT).mean()),
-         step_metrics=metrics, report=averages, fid=fids,
+         step_metrics=metrics, report=averages,
          inception_ms_per_batch=inception_ms, report_files=files,
          report_text=report_text.strip().splitlines())
 
@@ -2316,18 +2373,21 @@ def cli_assets(root: str) -> dict:
             'target_foreground': foreground, 'seconds': seconds}
 
 
-def cli_phase() -> None:
+def cli_phase(assets: dict) -> None:
     """The inversion CLI end to end, in this process, through
     `cli.run.main` with the default flags (batches of 8, 30 steps,
-    checkpoints 0 and 30, FID, bf16): the p3d_car test split from disk,
-    the EMA weights from the GAN checkpoint, the encoder file, the weight
-    files, the report's files. Launches are counted around each call of
-    the refinement steps and of the evaluation (never B5a in the steps
-    nor B1 in an evaluation); each batch's times are the CLI's own."""
+    checkpoints 0 and 30, FID; the generator in float32 whatever
+    --compute_dtype says, as the JAX CLI builds it): the p3d_car test
+    split from disk, the EMA weights from the GAN checkpoint, the encoder
+    file, the weight files, the report's files. Launches are counted
+    around each call of the refinement steps and of the evaluation (never
+    B5a in the steps nor B1 in an evaluation); each batch's times are the
+    CLI's own."""
     started = time.perf_counter()
     calls = []
+    dtypes = []
     originals = (inv.run_inversion, pipeline.evaluate_checkpoint,
-                 loaders.load_dataset)
+                 loaders.load_dataset, cli_inversion.run_inversion_cli)
 
     def counted(kind, fn):
         def wrapper(*args, **kwargs):
@@ -2339,31 +2399,36 @@ def cli_phase() -> None:
             return out
         return wrapper
 
-    with tempfile.TemporaryDirectory() as tmp:
-        assets = cli_assets(tmp)
-        argv = ['--dataset', 'p3d_car', '--run_inversion', '--resume_from',
-                assets['gan'], '--coord_resume_from', assets['encoder'],
-                '--root_path', assets['root'], '--data_path',
-                assets['data']]
-        inv.run_inversion = counted('steps', originals[0])
-        pipeline.evaluate_checkpoint = counted('evaluation', originals[1])
-        loaders.load_dataset = counted('dataset', originals[2])
-        try:
-            reset_counts()
-            t0 = time.perf_counter()
-            out = cli_run.main(argv)
-            cli_s = time.perf_counter() - t0
-            total = counts()
-        finally:
-            (inv.run_inversion, pipeline.evaluate_checkpoint,
-             loaders.load_dataset) = originals
-        report_dir = out['report_dir']
-        report = dict(np.load(os.path.join(report_dir, 'report.npz')))
-        with open(os.path.join(report_dir, 'report.txt')) as f:
-            report_text = f.read()
-        with open(os.path.join(report_dir, 'scalars.jsonl')) as f:
-            tags = {json.loads(line)['tag'] for line in f}
+    def run_inversion_cli(args, cfg, dataset_config, gen, *rest):
+        dtypes.append((args.compute_dtype, str(gen.dtype),
+                       str(next(gen.parameters()).dtype)))
+        return originals[3](args, cfg, dataset_config, gen, *rest)
+
+    argv = ['--dataset', 'p3d_car', '--run_inversion', '--resume_from',
+            assets['gan'], '--coord_resume_from', assets['encoder'],
+            '--root_path', assets['root'], '--data_path', assets['data']]
+    inv.run_inversion = counted('steps', originals[0])
+    pipeline.evaluate_checkpoint = counted('evaluation', originals[1])
+    loaders.load_dataset = counted('dataset', originals[2])
+    cli_inversion.run_inversion_cli = run_inversion_cli
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = cli_run.main(argv)
+        cli_s = time.perf_counter() - t0
+        total = counts()
+    finally:
+        (inv.run_inversion, pipeline.evaluate_checkpoint,
+         loaders.load_dataset, cli_inversion.run_inversion_cli) = originals
+    report_dir = out['report_dir']
+    report = dict(np.load(os.path.join(report_dir, 'report.npz')))
+    with open(os.path.join(report_dir, 'report.txt')) as f:
+        report_text = f.read()
+    with open(os.path.join(report_dir, 'scalars.jsonl')) as f:
+        tags = {json.loads(line)['tag'] for line in f}
     torch.cuda.empty_cache()
+    if dtypes != [('bfloat16', 'torch.float32', 'torch.float32')]:
+        raise AssertionError(f'the inversion generator: {dtypes}')
 
     batches = out['batches']
     if [b['images'] for b in batches] != [8, 8, 4] or [
@@ -2412,6 +2477,8 @@ def cli_phase() -> None:
                                b['pnp_wait_s'] / b['pnp_s'])
     dataset_s = sum(c[1] for c in calls if c[0] == 'dataset')
     emit('cli', started, argv=[os.path.basename(a) for a in argv],
+         dtype={'compute_dtype': dtypes[0][0], 'generator': dtypes[0][1],
+                'parameters': dtypes[0][2]},
          test_images=CLI_TEST_IMAGES, train_images=CLI_TRAIN_IMAGES,
          image_hw=CLI_IMAGE_HW, assets_seconds=assets['seconds'],
          target_foreground=assets['target_foreground'], cli_s=cli_s,
@@ -2426,6 +2493,297 @@ def cli_phase() -> None:
                      ('fid_front', 'fid_random')}
               for step in (0, CLI_STEPS)},
          report_text=report_text.strip().splitlines())
+
+
+def float32_phase(lpips: LPIPS) -> None:
+    """The inversion in float32, as the CLI now runs it: a float32
+    generator's render and one refinement step through the kernels (B1,
+    B2 and B3, the planes rounded to bf16 at the kernels' boundary)
+    against the same render and step through the plain versions fed the
+    same bf16-rounded planes (`triplane_cuda.sample_bf16_planes` with the
+    plain functions): the render within B1's KERNEL_ATOL, the step within
+    STEP_LOSS_RTOL and STEP_GRAD_RTOL; the step's ms beside it."""
+    started = time.perf_counter()
+    dev = torch.device('cuda')
+    gen = Generator(dtype=torch.float32, device=dev, seed=0,
+                    **dict(GEN_KWARGS, scene_range=INV_CFG.scene_range))
+    gen.eval()
+    target, _, gt_cam, init = inversion_problem(gen)
+
+    def plain(planes_cl, coords):
+        return triplane_cuda.sample_bf16_planes(
+            planes_cl, coords, triplane.sample_triplane_plain,
+            triplane.sample_triplane_grad_plain,
+            triplane.sample_triplane_grad_planes_plain)
+
+    with torch.no_grad():
+        reset_counts()
+        k_out = inv.render_from_params(gen, init, INV_CFG)[0]
+        render_launches = counts()
+        p_out = inv.render_from_params(gen, init, INV_CFG, sampler=plain)[0]
+    expect_launches('float32 render', render_launches,
+                    **{triplane_cuda.KERNEL: 2})
+    render_err = {k: float((getattr(k_out, k) - getattr(p_out, k)).abs()
+                           .max()) for k in ('rgb', 'mask', 'depth')}
+    if max(render_err['rgb'], render_err['mask']) > KERNEL_ATOL:
+        raise AssertionError(f'float32 render with the kernels differs from '
+                             f'the plain render: {render_err}')
+
+    tform = augment.sample_transform(
+        torch.Generator(device=dev).manual_seed(6),
+        BATCH * INV_CFG.num_augmentations, 1.0)
+    step = inv.make_inversion_step(gen, lpips, INV_CFG, gt_cam)
+    plain_step = inv.make_inversion_step(gen, lpips, INV_CFG, gt_cam,
+                                         sampler=plain, warp=warp.warp_plain)
+
+    def loss_and_grads(step_fn):
+        p = init.copy(requires_grad=True)
+        m = step_fn(p, inv.make_optimizer(p, INV_CFG), target, tform=tform)
+        return float(m['loss']), p.z.grad, p.R.grad
+
+    reset_counts()
+    k_loss, k_gz, k_gr = loss_and_grads(step)
+    step_launches = counts()
+    expect_launches('float32 step', step_launches,
+                    **{triplane_cuda.KERNEL: 2, triplane_cuda.GRAD_KERNEL: 2,
+                       'warp_forward': 2, 'warp_backward': 1})
+    p_loss, p_gz, p_gr = loss_and_grads(plain_step)
+    loss_err = abs(k_loss - p_loss) / abs(p_loss)
+    gz_err = float((k_gz - p_gz).norm() / p_gz.norm())
+    gr_err = float((k_gr - p_gr).norm() / p_gr.norm())
+    if (loss_err > STEP_LOSS_RTOL or gz_err > STEP_GRAD_RTOL or
+            gr_err > STEP_GRAD_RTOL):
+        raise AssertionError(f'float32 step with the kernels differs from '
+                             f'the plain step: loss {loss_err}, grad z '
+                             f'{gz_err}, grad R {gr_err}')
+    params = init.copy(requires_grad=True)
+    optimizer = inv.make_optimizer(params, INV_CFG)
+    step_ms = time_cuda(lambda: step(params, optimizer, target, tform=tform),
+                        INV_STEPS, warmup=1)
+    del gen
+    torch.cuda.empty_cache()
+    emit('float32', started, render_launches=render_launches,
+         render_err=render_err, render_atol=KERNEL_ATOL,
+         step_launches=step_launches, step_ms=step_ms,
+         plain_check={'loss_kernels': k_loss, 'loss_plain': p_loss,
+                      'loss_rel_err': loss_err, 'grad_z_rel_err': gz_err,
+                      'grad_R_rel_err': gr_err, 'loss_rtol': STEP_LOSS_RTOL,
+                      'grad_rtol': STEP_GRAD_RTOL})
+
+
+def train_cli_phase(assets: dict, rows: dict) -> None:
+    """The GAN-training CLI end to end, in this process, through
+    `cli.run.main` at its default flags (batch 32, bf16, 128^2, 64 + 64
+    samples, p3d_car's ADA, R1, blur and regularizers) on the cli phase's
+    fixture and weight files: a fresh run of 4 iterations (1000 steps of
+    SDF pretraining, G, D, G, D, the iteration-3 evaluation, `latest` and
+    `best`) and a resume by name to 8. Launches are counted around every
+    G step, D step, evaluation and pretraining call; the steps' ms come
+    from CUDA events around each; the evaluation's seconds from the
+    evaluator's own clock. Then the evaluation's first render through the
+    kernels against the same render through the plain versions."""
+    started = time.perf_counter()
+    calls = []
+    images = set()
+    saves = []
+    originals = (gan.g_step, gan.d_step, pretrain.pretrain_sdf,
+                 train_eval.GANEvaluator.evaluate,
+                 train_eval.GANEvaluator.log_training_images,
+                 checkpoint.CheckpointManager.save,
+                 port_logging.SummaryWriter.add_images)
+
+    def counted(kind, fn, events=False):
+        def wrapper(*args, **kwargs):
+            before = counts()
+            if events:
+                timer = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+                timer[0].record()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if events:
+                timer[1].record()
+            else:
+                torch.cuda.synchronize()
+            calls.append({'kind': kind, 'timer': timer if events else None,
+                          'seconds': time.perf_counter() - t,
+                          'launches': {name: n - before[name]
+                                       for name, n in counts().items()}})
+            return out
+        return wrapper
+
+    def save(self, obj, label='latest'):
+        t = time.perf_counter()
+        originals[5](self, obj, label)
+        saves.append((label, obj['iteration'], time.perf_counter() - t))
+
+    def add_images(self, tag, imgs, step):
+        images.add((tag, int(step)))
+        return originals[6](self, tag, imgs, step)
+
+    root = os.path.join(os.path.dirname(assets['root']), 'train_out')
+    os.makedirs(root)
+    os.symlink(os.path.join(assets['root'], 'weights'),
+               os.path.join(root, 'weights'))
+    argv = ['--dataset', 'p3d_car', '--root_path', root, '--data_path',
+            assets['data']]
+    gan.g_step = counted('g', originals[0], events=True)
+    gan.d_step = counted('d', originals[1], events=True)
+    pretrain.pretrain_sdf = counted('pretrain', originals[2])
+    train_eval.GANEvaluator.evaluate = counted('evaluate', originals[3])
+    train_eval.GANEvaluator.log_training_images = counted('images',
+                                                          originals[4])
+    checkpoint.CheckpointManager.save = save
+    port_logging.SummaryWriter.add_images = add_images
+    runs = []
+    try:
+        for extra in (['--iterations', str(TRAIN_CLI_ITERS[0])],
+                      ['--iterations', str(TRAIN_CLI_ITERS[1]),
+                       '--resume_from', None]):
+            if extra[-1] is None:
+                extra[-1] = os.path.basename(runs[0]['out']['checkpoint_dir'])
+            calls.clear()
+            saves.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = cli_run.main(argv + extra)
+            torch.cuda.synchronize()
+            ckpt_dir = out['checkpoint_dir']
+            runs.append({
+                'out': out, 'seconds': time.perf_counter() - t0,
+                'peak_gb': torch.cuda.max_memory_allocated() / 1e9,
+                'total': counts(), 'calls': list(calls),
+                'saves': list(saves),
+                'labels': {f: checkpoint.load(os.path.join(ckpt_dir, f))[
+                    'iteration'] for f in sorted(os.listdir(ckpt_dir))},
+                'scalars': [json.loads(line) for line in open(
+                    os.path.join(out['log_dir'], 'scalars.jsonl'))]})
+            torch.cuda.empty_cache()
+    finally:
+        (gan.g_step, gan.d_step, pretrain.pretrain_sdf,
+         train_eval.GANEvaluator.evaluate,
+         train_eval.GANEvaluator.log_training_images,
+         checkpoint.CheckpointManager.save,
+         port_logging.SummaryWriter.add_images) = originals
+
+    want = {'g': TRAIN_CLI_G, 'd': TRAIN_CLI_D, 'evaluate': TRAIN_CLI_EVAL,
+            'images': TRAIN_CLI_IMAGES, 'pretrain': {}}
+    kinds = (['pretrain'] + ['g', 'd'] * 2 + ['evaluate', 'images'],
+             ['g', 'd'] * 2)
+    summary = []
+    for run, kind_list, n_iter in zip(runs, kinds, TRAIN_CLI_ITERS):
+        if [c['kind'] for c in run['calls']] != kind_list:
+            raise AssertionError(f'train cli calls: '
+                                 f'{[c["kind"] for c in run["calls"]]}')
+        for c in run['calls']:
+            expect_launches(f'train cli {c["kind"]}', c['launches'],
+                            **want[c['kind']])
+        total = {name: sum(c['launches'][name] for c in run['calls'])
+                 for name in run['total']}
+        if total != run['total']:
+            raise AssertionError(f'train cli launches {run["total"]}, per '
+                                 f'call {total}')
+        if run['out']['state'].iteration != n_iter:
+            raise AssertionError(f'train cli iteration '
+                                 f'{run["out"]["state"].iteration}')
+        step_ms = {k: [c['timer'][0].elapsed_time(c['timer'][1])
+                       for c in run['calls'] if c['kind'] == k]
+                   for k in ('g', 'd')}
+        summary.append({
+            'seconds': run['seconds'], 'peak_gb': run['peak_gb'],
+            'pretrained': run['out']['pretrained'],
+            'launches': run['total'], 'g_ms': step_ms['g'],
+            'd_ms': step_ms['d'],
+            'seconds_by_call': {k: sum(c['seconds'] for c in run['calls']
+                                       if c['kind'] == k)
+                                for k in ('pretrain', 'evaluate', 'images')},
+            'checkpoints': run['saves'], 'labels': run['labels']})
+    fresh, resumed = runs
+    if not fresh['out']['pretrained'] or resumed['out']['pretrained']:
+        raise AssertionError('pretraining: fresh run '
+                             f'{fresh["out"]["pretrained"]}, resumed run '
+                             f'{resumed["out"]["pretrained"]}')
+    if fresh['labels'] != {'checkpoint_best.pth': 4,
+                           'checkpoint_latest.pth': 4} or resumed[
+            'labels'] != {'checkpoint_best.pth': 4,
+                          'checkpoint_latest.pth': 8}:
+        raise AssertionError(f'checkpoints {fresh["labels"]}, '
+                             f'{resumed["labels"]}')
+    logged = {(s['tag'], s['step']): s['value'] for s in fresh['scalars']}
+    for step, tags in TRAIN_CLI_SCALARS.items():
+        for tag in tags:
+            if not np.isfinite(logged.get((tag, step), np.nan)):
+                raise AssertionError(f'scalar {tag} at {step}: '
+                                     f'{logged.get((tag, step))}')
+    if len(resumed['scalars']) != len(fresh['scalars']):
+        raise AssertionError('the resumed run logged scalars')
+    missing = {(t, 3) for t in TRAIN_CLI_IMAGE_TAGS} - images
+    if missing:
+        raise AssertionError(f'images not logged: {sorted(missing)}')
+
+    evaluator = fresh['out']['evaluator']
+    check = train_normals_check(fresh['out']['state'].gen_ema, evaluator)
+    for name, key in ((triplane_cuda.KERNEL, 'triplane_sample'),
+                      (triplane_cuda.GRAD_PLANES_KERNEL,
+                       'triplane_sample_grad_planes'),
+                      (triplane_cuda.GRAD_KERNEL, 'triplane_sample_grad')):
+        rows[name]['train_cli_launches'] = {
+            'g_step': TRAIN_CLI_G.get(key, 0),
+            'd_step': TRAIN_CLI_D.get(key, 0),
+            'evaluation': TRAIN_CLI_EVAL.get(key, 0) +
+            TRAIN_CLI_IMAGES.get(key, 0)}
+    emit('train_cli', started, argv=[os.path.basename(a) for a in argv],
+         iterations=TRAIN_CLI_ITERS, runs=summary,
+         fid=logged[('generation/fid_untrunc', 3)],
+         eval_seconds=evaluator.times,
+         scalars={f'{t}@{s}': v for (t, s), v in logged.items()},
+         images=sorted(f'{t}@{s}' for t, s in images),
+         normals_check=check)
+
+
+def train_normals_check(gen: Generator, evaluator) -> dict:
+    """The evaluation's first batch rendered with normals and semantics
+    through the kernels (B1 4, B2 2) and through the plain versions."""
+    cfg = evaluator.cfg
+    split = evaluator.train_eval_split
+    idx = split.eval_indices[:evaluator.eval_bs]
+    z = evaluator._tensor(evaluator.z_fid[:len(idx)])
+    cams = [evaluator._field(split, idx, name) for name in
+            ('tform_cam2world', 'focal_length', 'center', 'bbox')]
+    with torch.no_grad():
+        state = gen.synthesize(gen.map(z))
+
+        def run(sampler):
+            return render(lambda pts, reqs: gen.sample(state, pts, reqs,
+                                                       sampler=sampler),
+                          cfg.resolution, cfg.resolution, cams[0], cams[1],
+                          cfg.scene_range, cfg.white_background,
+                          cfg.depth_samples_per_ray, center=cams[2],
+                          bbox=cams[3], compute_normals=True,
+                          compute_semantics=True)
+
+        reset_counts()
+        k_out = run(triplane_cuda.sample_triplane)
+        launched = counts()
+        p_out = run(triplane.plain_sampler)
+    expect_launches('evaluation render with normals', launched,
+                    **{triplane_cuda.KERNEL: 4, triplane_cuda.GRAD_KERNEL: 2})
+    err = {k: float((getattr(k_out, k).float() - getattr(p_out, k).float())
+                    .abs().max()) for k in ('rgb', 'mask', 'semantics')}
+    solid = (k_out.mask > 0.5) & (p_out.mask > 0.5)
+    err['normals_where_mask_above_half'] = float(
+        (k_out.normals - p_out.normals).abs()[solid].max()) if bool(
+        solid.any()) else None
+    if (max(err['rgb'], err['mask'], err['semantics']) > RENDER_ATOL or
+            err['normals_where_mask_above_half'] is None or
+            err['normals_where_mask_above_half'] > NORMAL_ATOL):
+        raise AssertionError(f'the evaluation render with the kernels '
+                             f'differs from the plain render: {err}')
+    return {'launches': launched, 'max_abs_err': err,
+            'pixels_mask_above_half': int(solid.sum()),
+            'atol': RENDER_ATOL, 'normal_atol': NORMAL_ATOL}
 
 
 def report_files_round_trip(report) -> dict:
@@ -2480,7 +2838,12 @@ def main() -> None:
     inv_gen, lpips = inversion_models()
     inversion_step = inversion_phase(rows, inv_gen, lpips)
     pipeline_phase(rows, inv_gen, lpips)
-    cli_phase()
+    float32_phase(lpips)
+    with tempfile.TemporaryDirectory() as tmp:
+        assets = cli_assets(tmp)
+        cli_phase(assets)
+        torch.cuda.empty_cache()
+        train_cli_phase(assets, rows)
     torch.cuda.empty_cache()
     train_steps = train_phase(rows)
     torch.cuda.empty_cache()

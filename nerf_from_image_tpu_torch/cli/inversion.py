@@ -44,36 +44,13 @@ from nerf_from_image_tpu_torch.invert import optimizer as inv_opt
 from nerf_from_image_tpu_torch.invert import pipeline as pipe
 from nerf_from_image_tpu_torch.invert import pnp
 from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
+from nerf_from_image_tpu_torch.train.eval import compute_view_perm
 from nerf_from_image_tpu_torch.utils import checkpoint as ckpt_lib
 from nerf_from_image_tpu_torch.utils import weights as weights_lib
 from nerf_from_image_tpu_torch.utils.logging import SummaryWriter
 
 N_IMAGES_FID_MAX = 8000
 REPORT_CHECKPOINT_EVERY = 512
-
-
-def compute_view_perm(target_img_indices, views_per_object,
-                      rng: np.random.RandomState):
-    """Matches each index to another view of the same object
-    (run.py:443-474)."""
-    if views_per_object == 1:
-        return target_img_indices[rng.permutation(len(target_img_indices))]
-    obj_index = {}
-    for idx in target_img_indices:
-        obj_index.setdefault(int(idx) // views_per_object, []).append(
-            int(idx))
-    perm = []
-    for idx in target_img_indices:
-        views = obj_index[int(idx) // views_per_object]
-        if len(views) == 1:
-            perm.append(views[0])
-        else:
-            while True:
-                cand = views[rng.randint(len(views))]
-                if cand != int(idx):
-                    perm.append(cand)
-                    break
-    return np.asarray(perm)
 
 
 def build_eval_indices(split, n_images_fid_max, views_per_object,

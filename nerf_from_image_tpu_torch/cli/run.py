@@ -2,45 +2,67 @@
 `nerf_from_image_tpu/cli/run.py`, the reference's run.py).
 
     python -m nerf_from_image_tpu_torch.cli.run --dataset p3d_car \\
+        --root_path R --data_path D
+    python -m nerf_from_image_tpu_torch.cli.run --dataset p3d_car \\
         --run_inversion --resume_from <gan.pth> --coord_resume_from <enc.pth>
 
 `main` parses the JAX CLI's flags (`config.py`), loads the dataset
-(`data/loaders.py`), builds the generator of `GANConfig` and restores the
-EMA weights from --resume_from (`utils/checkpoint.py`: `name`,
-`name+iter` or a literal `.pth`, all in the reference's layout), then runs
-the --run_inversion workload (`cli/inversion.py`). It runs on the card
-(`main(argv, device='cpu')` on the CPU, as the tests call it).
---compute_dtype sets the generator's activations, bfloat16 by default;
-the JAX CLI's inversion renders in float32 whatever the flag, so at the
-default flags the two reports differ in precision (ROADMAP C). On the
-card the generator must be bfloat16, since the kernels take bfloat16
-planes: float32 there is refused before any work.
+(`data/loaders.py`) and builds the GAN's configuration. Without
+--run_inversion it trains the GAN (`run_training`): a fresh run first
+fits the SDF to a sphere (`train/pretrain.py`, 1000 steps), then the
+loop (`train/loop.py`) alternates G and D steps, evaluates at iteration
+3 and every 5000 (`train/eval.py`: FID with the Inception of
+`weights/pt_inception.pth`, or a random one with a warning, and the
+image families), and writes `gan_checkpoints/<name>/checkpoint_latest.pth`
+(and `best`, and one every 50,000) and the logs under
+`gan_logs/<name>/`; a final `latest` closes the run. --resume_from takes
+`name` (that run's latest), `name+iter` or a literal `.pth`, all in the
+reference's layout; without it a run auto-resumes from its own `latest`
+only from iteration 12,500 on, else it trains from scratch.
+--compute_dtype (bfloat16 by default) sets the dtype of the training and
+pretraining models.
 
-Not ported yet, and refused with NotImplementedError before any work,
-each naming its item of ROADMAP queue A: GAN training and its SDF
-pretraining, the demo (--inv_export_demo_sample,
---inv_manual_input_path), more than one device, the other datasets'
-generator features (StyleGAN noise, orthographic cameras, view
-directions) and GAN training's flag-only modes (encoder or class
-conditioning, attention_values 0, --perturb_poses).
+With --run_inversion it restores the EMA generator from --resume_from and
+runs the inversion (`cli/inversion.py`) with the generator in float32
+whatever --compute_dtype says, as the JAX CLI does. On the card the
+kernels read the planes rounded to bfloat16 at every dtype, as the JAX
+package's Pallas path does (`ops/triplane_cuda.sample_bf16_planes`).
+
+It runs on the card (`main(argv, device='cpu')` on the CPU, as the tests
+call it). Not ported yet, and refused with NotImplementedError before any
+work, each naming its item of ROADMAP queue A: the demo
+(--inv_export_demo_sample, --inv_manual_input_path), more than one device
+and --profile_trace_at, the other datasets' generator features
+(StyleGAN noise, orthographic cameras, view directions) and GAN
+training's flag-only modes (encoder or class conditioning, dual
+discriminators, path-length regularization, attention_values 0,
+--perturb_poses).
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 from nerf_from_image_tpu_torch import config as config_lib
 from nerf_from_image_tpu_torch.data import loaders
 from nerf_from_image_tpu_torch.device import DeviceLike, resolve_device
 from nerf_from_image_tpu_torch.train import gan as gan_lib
+from nerf_from_image_tpu_torch.train import loop as loop_lib
+from nerf_from_image_tpu_torch.train import pretrain
+from nerf_from_image_tpu_torch.train.eval import GANEvaluator
 from nerf_from_image_tpu_torch.utils import checkpoint as ckpt_lib
 from nerf_from_image_tpu_torch.utils import convert
+from nerf_from_image_tpu_torch.utils import weights as weights_lib
+from nerf_from_image_tpu_torch.utils.logging import SummaryWriter
 
 
 FEATURES = "the other datasets' generator features"
 FLAG_MODES = "GAN training's flag-only modes"
+# A run's own latest checkpoint resumes it only from this iteration on.
+AUTO_RESUME_MIN_ITERATION = 12500
 
 
 def check_ported(args, dataset_config: dict) -> None:
@@ -55,12 +77,17 @@ def check_ported(args, dataset_config: dict) -> None:
     if args.inv_export_demo_sample or args.inv_manual_input_path:
         refuse('the demo (--inv_export_demo_sample, '
                '--inv_manual_input_path)', 'the demo')
-    if not args.run_inversion:
-        refuse('GAN training and its SDF pretraining', 'the GAN-training CLI')
+    if not args.run_inversion and args.profile_trace_at > 0:
+        refuse('--profile_trace_at (utils/profiling)', 'several cards')
     if args.perturb_poses > 0:
         refuse('--perturb_poses', FLAG_MODES)
     if args.use_encoder or args.use_class:
         refuse('encoder or class conditioning', FLAG_MODES)
+    if (args.dual_discriminator or args.dual_discriminator_l1 or
+            args.dual_discriminator_mse):
+        refuse('dual discriminators', FLAG_MODES)
+    if args.path_length_regularization:
+        refuse('path-length regularization', FLAG_MODES)
     if args.attention_values <= 0:
         refuse('attention_values 0', FLAG_MODES)
     if args.use_viewdir:
@@ -83,6 +110,7 @@ def make_gan_config(args, dataset_config: dict) -> gan_lib.GANConfig:
         is_highres=dataset_config.get('is_highres', False),
         r1=args.r1, tv=args.tv, entropy=args.entropy, eikonal=args.eikonal,
         augment_ada=args.augment_ada, augment_p_max=args.augment_p,
+        ada_target=args.ada_target,
         clip_gradient_norm=args.clip_gradient_norm, lr_g=args.lr_g,
         lr_d=args.lr_d, batch_size=args.batch_size,
         plane_resolution=args.plane_resolution,
@@ -93,7 +121,8 @@ def make_gan_config(args, dataset_config: dict) -> gan_lib.GANConfig:
 
 def main(argv=None, device: DeviceLike = None):
     """Runs the CLI on `device` (None: the card, raising without CUDA).
-    Returns what `cli.inversion.run_inversion_cli` returns."""
+    Returns what `run_training` or `cli.inversion.run_inversion_cli`
+    returns."""
     args = config_lib.parse_args(argv)
     if args.inv_manual_input_path:
         args.inv_export_demo_sample = True
@@ -110,16 +139,11 @@ def main(argv=None, device: DeviceLike = None):
     check_ported(args, config_lib.get_dataset_config(args.dataset))
     device = resolve_device(device)
     if device.type == 'cuda':
-        if args.compute_dtype != 'bfloat16':
-            raise NotImplementedError(
-                f'--compute_dtype {args.compute_dtype} on the card: the '
-                'kernels take bfloat16 planes (ROADMAP C)')
-        # float32 stays float32 (the encoder, LPIPS, Inception), as every
-        # check of the port holds it.
+        # float32 stays float32 (the inversion's generator, the encoder,
+        # LPIPS, Inception), as every check of the port holds it.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    report_dir = os.path.join(args.root_path, 'reports')
     print('Experiment name:', experiment_name)
     print('Device:', torch.cuda.get_device_name(device)
           if device.type == 'cuda' else device)
@@ -129,9 +153,14 @@ def main(argv=None, device: DeviceLike = None):
         loaders.load_dataset(args)
 
     cfg = make_gan_config(args, dataset_config)
-    dtype = (torch.bfloat16 if args.compute_dtype == 'bfloat16' else
-             torch.float32)
-    gen, _ = gan_lib.make_models(cfg, dtype, device)
+    if not args.run_inversion:
+        dtype = (torch.bfloat16 if args.compute_dtype == 'bfloat16' else
+                 torch.float32)
+        return run_training(args, cfg, dataset_config, train_split,
+                            train_eval_split, experiment_name, dtype, device)
+
+    # The inversion's generator is float32 whatever --compute_dtype says.
+    gen, _ = gan_lib.make_models(cfg, torch.float32, device)
     if args.resume_from:
         path = ckpt_lib.resolve_gan_checkpoint(args.root_path,
                                                args.resume_from)
@@ -145,8 +174,91 @@ def main(argv=None, device: DeviceLike = None):
 
     from nerf_from_image_tpu_torch.cli.inversion import run_inversion_cli
     return run_inversion_cli(args, cfg, dataset_config, gen, train_split,
-                             train_eval_split, test_split, report_dir,
+                             train_eval_split, test_split,
+                             os.path.join(args.root_path, 'reports'),
                              experiment_name, device)
+
+
+def run_training(args, cfg: gan_lib.GANConfig, dataset_config: dict,
+                 train_split, train_eval_split, experiment_name: str,
+                 dtype: torch.dtype, device: torch.device) -> dict:
+    """GAN training: resume or pretrain, the loop with its evaluator, and a
+    final `latest`. Returns {'state', 'evaluator', 'checkpoint_dir',
+    'log_dir', 'pretrained'}."""
+    checkpoint_dir = os.path.join(args.root_path, 'gan_checkpoints',
+                                  experiment_name)
+    log_dir = os.path.join(args.root_path, 'gan_logs', experiment_name)
+    ckpt = ckpt_lib.CheckpointManager(checkpoint_dir)
+
+    def fresh_state():
+        return gan_lib.init_train_state(cfg, dtype, device, seed=1234)
+
+    state = fresh_state()
+    host_state = None  # the resumed checkpoint's random_state
+    best_fid = None
+    if args.resume_from:
+        path = ckpt_lib.resolve_gan_checkpoint(args.root_path,
+                                               args.resume_from)
+        saved = ckpt_lib.load(path)
+        best_fid = ckpt_lib.restore_gan_checkpoint(saved, state).get(
+            'best_fid')
+        host_state = saved.get('random_state')
+        print('Resumed from iteration', state.iteration, f'({path})')
+    elif ckpt.exists('latest'):
+        # A run's own latest: best-effort, from iteration 12,500 on.
+        try:
+            saved = ckpt.load('latest')
+            if int(saved.get('iteration', 0)) >= AUTO_RESUME_MIN_ITERATION:
+                best_fid = ckpt_lib.restore_gan_checkpoint(
+                    saved, state).get('best_fid')
+                host_state = saved.get('random_state')
+                print('Auto-resumed from iteration', state.iteration)
+            else:
+                print('Aborting resume (training from scratch)')
+        except Exception as e:
+            print(f'Aborting resume (incompatible latest checkpoint: {e}); '
+                  'training from scratch')
+            state = fresh_state()
+            best_fid = host_state = None
+
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    writer = SummaryWriter(log_dir)
+    inception = weights_lib.load_inception(args.root_path, device,
+                                           random_if_missing=True)
+    evaluator = GANEvaluator(
+        cfg, dataset_config, args.dataset, train_split, train_eval_split,
+        inception=inception, use_encoder=args.use_encoder,
+        use_class=args.use_class, eval_batch_size=min(args.batch_size, 8),
+        stats_cache_dir=os.path.join(args.root_path, 'fid_stats'),
+        device=device)
+    if best_fid is not None:
+        # checkpoint_best's gate survives restarts.
+        evaluator.best_fid = best_fid
+    eval_rng = np.random.RandomState(4321)
+
+    def eval_fn(s, i):
+        fid, is_best = evaluator.evaluate(s, i, writer)
+        if fid is not None:
+            print(f'[{i}] FID: {fid:.2f} (best {evaluator.best_fid:.2f})')
+        evaluator.log_training_images(s, i, writer, eval_rng)
+        return fid, is_best
+
+    pretrained = state.iteration == 0
+    if pretrained:
+        print('SDF pre-training...')
+        pretrain.pretrain_sdf(state, cfg, args.eikonal, lr=args.lr_g)
+
+    loop_lib.train_gan(
+        state, cfg, train_split, args.iterations, writer=writer,
+        ckpt_manager=ckpt, eval_fn=eval_fn, host_state=host_state,
+        host_state_extra=lambda: {'best_fid': evaluator.best_fid})
+    # As the JAX CLI's final save: the state without the loop's host state.
+    ckpt.save(ckpt_lib.gan_checkpoint(state), 'latest')
+    writer.close()
+    print('Training done.')
+    return {'state': state, 'evaluator': evaluator,
+            'checkpoint_dir': checkpoint_dir, 'log_dir': log_dir,
+            'pretrained': pretrained}
 
 
 if __name__ == '__main__':

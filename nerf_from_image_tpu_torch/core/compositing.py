@@ -39,23 +39,25 @@ def compute_weights(sigma: torch.Tensor, ray_directions: torch.Tensor,
 
 def composite(sigma: torch.Tensor, rgb: torch.Tensor,
               ray_directions: torch.Tensor, depth_values: torch.Tensor,
+              normals: Optional[torch.Tensor] = None,
               semantics: Optional[torch.Tensor] = None,
               white_background: bool = True
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                         Optional[torch.Tensor]]:
-    """Composites sigma/rgb (and optional per-sample semantics) along
-    rays, samples in any per-ray order.
+                         Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Composites sigma/rgb (and optional per-sample normals and
+    semantics) along rays, samples in any per-ray order.
 
     Args:
       sigma: (..., S), rgb: (..., S, C), depth_values: (..., S),
-      ray_directions: (..., 3), semantics: None or (..., S, K).
+      ray_directions: (..., 3), normals: None or (..., S, 3), semantics:
+      None or (..., S, K).
 
     Returns:
-      (rgb_map (..., C), depth_map (...), mask (...), semantic_map
-      (..., K) or None), in float32. The depth map uses detached weights;
-      rgb, mask and semantics the weights themselves, as the JAX package
-      composites them (its normal map, not ported yet, takes the detached
-      ones).
+      (rgb_map (..., C), depth_map (...), mask (...), normal_map (..., 3)
+      or None, semantic_map (..., K) or None), in float32. The depth and
+      normal maps use detached weights; rgb, mask and semantics the
+      weights themselves, as the JAX package composites them. On a white
+      background the normal map gets the same fill as the rgb map.
     """
     sigma = sigma.float()
     rgb = rgb.float()
@@ -66,16 +68,24 @@ def composite(sigma: torch.Tensor, rgb: torch.Tensor,
     weights = compute_weights(sigma, ray_directions.float(), depth_values)
 
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
-    depth_map = torch.sum(weights.detach() * depth_values.detach(), dim=-1)
+    weights_sg = weights.detach()
+    depth_map = torch.sum(weights_sg * depth_values.detach(), dim=-1)
     mask = torch.sum(weights, dim=-1)
-    semantic_map = None
-    if semantics is not None:
-        semantics = torch.take_along_dim(semantics.float(),
-                                         order[..., None], dim=-2)
-        semantic_map = torch.sum(weights[..., None] * semantics, dim=-2)
+
+    def per_sample_map(values, w):
+        if values is None:
+            return None
+        values = torch.take_along_dim(values.float(), order[..., None],
+                                      dim=-2)
+        return torch.sum(w[..., None] * values, dim=-2)
+
+    normal_map = per_sample_map(normals, weights_sg)
+    semantic_map = per_sample_map(semantics, weights)
     if white_background:
         rgb_map = rgb_map + (1.0 - mask[..., None])
-    return rgb_map, depth_map, mask, semantic_map
+        if normal_map is not None:
+            normal_map = normal_map + (1.0 - mask[..., None])
+    return rgb_map, depth_map, mask, normal_map, semantic_map
 
 
 def render_volume_density(sigma: torch.Tensor, rgb: torch.Tensor,
@@ -84,7 +94,8 @@ def render_volume_density(sigma: torch.Tensor, rgb: torch.Tensor,
                           white_background: bool = True
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
-    """`composite` without semantics: (rgb_map, depth_map, mask)."""
+    """`composite` without normals or semantics: (rgb_map, depth_map,
+    mask)."""
     return composite(sigma, rgb, ray_directions, depth_values,
                      white_background=white_background)[:3]
 

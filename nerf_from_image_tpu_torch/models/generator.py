@@ -11,10 +11,10 @@ Names follow the reference's state-dict keys (`mapping_network.backbone.*`,
 ports the configuration every reference dataset trains: an SDF field
 (`--use_sdf` is always true there) with an attention palette, the SDF
 regularizers of GAN training (eikonal, total variation, entropy) and the
-distance loss of SDF pretraining, and the world points as a per-point
-output (the encoder distillation's coordinate render). View directions,
-encoder, class embedding, noise injection, normals and semantics wait for
-later slices.
+distance loss of SDF pretraining, and as per-point outputs the normals
+and the palette probabilities (the GAN evaluation's images) and the world
+points (the encoder distillation's coordinate render). View directions,
+encoder, class embedding and noise injection wait for later slices.
 """
 
 from __future__ import annotations
@@ -284,8 +284,9 @@ class Generator(nn.Module):
 
         Args:
           x_in: (B, ..., 3) world-space points, float32.
-          requests: a subset of {'sigma', 'rgb', 'coords'}; with
-            `fuse_decode`, of {'sigma', 'rgb'}.
+          requests: a subset of {'sigma', 'rgb', 'normals', 'semantics',
+            'coords'}; with `fuse_decode`, of {'sigma', 'rgb'} (the JAX
+            package fuses no other request).
           sampler: the triplane sampler; the default runs the CUDA
             kernels (forward B1, backward B2) for CUDA tensors and their
             plain versions for CPU tensors, differentiable to the planes
@@ -295,12 +296,18 @@ class Generator(nn.Module):
             fused kernel reads them, and another sampler raises.
 
         Returns values flattened over the non-batch dims: sigma (B, N),
-        rgb (B, N, 3), coords (B, N, 3) (the world points themselves),
+        rgb (B, N, 3), normals (B, N, 3) (the normalized gradient of the
+        summed SDF to the world points, taken under `enable_grad` even in
+        a gradient-free render and detached: on the card the default
+        sampler's forward B1, then B2's coordinate gradient; undefined
+        outside the box, as in the JAX package), semantics (B, N, K) (the
+        palette softmax), coords (B, N, 3) (the world points themselves),
         and overflow_resid, a 0
         int32 scalar (the JAX package's windowed-sampler overflow count,
         which a direct gather never has).
         """
-        unknown = set(requests) - {'sigma', 'rgb', 'coords'}
+        unknown = set(requests) - {'sigma', 'rgb', 'normals', 'semantics',
+                                   'coords'}
         if unknown:
             raise NotImplementedError(f'requests not ported yet: {unknown}')
         bs = x_in.shape[0]
@@ -330,14 +337,26 @@ class Generator(nn.Module):
                 outputs['rgb'] = out4[..., 1:].to(self.dtype)
             return outputs
 
+        if 'normals' in requests:
+            with torch.enable_grad():
+                pts = x_in.detach().reshape(bs, -1, 3).requires_grad_()
+                d = self.decoder.mlp(sampler(
+                    state.planes_cl, (pts / self.scene_range).contiguous()
+                ).to(self.dtype))['density_or_distance'][..., -1]
+                grad, = torch.autograd.grad(d.sum(), pts)
+            outputs['normals'] = grad / torch.linalg.vector_norm(
+                grad, dim=-1, keepdim=True).clamp_min(1e-12)
         feats = sampler(state.planes_cl, x.contiguous())
         dec = self.decoder.mlp(feats.to(self.dtype))
         if 'sigma' in requests:
             outputs['sigma'] = self.sdf_to_sigma(dec['density_or_distance'],
                                                  oob)
-        if 'rgb' in requests:
+        if 'rgb' in requests or 'semantics' in requests:
             probs = torch.softmax(dec['features'], dim=-1)
-            outputs['rgb'] = palette_rgb(probs, state.attention_values)
+            if 'semantics' in requests:
+                outputs['semantics'] = probs
+            if 'rgb' in requests:
+                outputs['rgb'] = palette_rgb(probs, state.attention_values)
         return outputs
 
     def sdf_losses(self, planes_cl: torch.Tensor,

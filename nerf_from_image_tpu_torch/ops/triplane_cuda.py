@@ -13,6 +13,9 @@ share the tile binning of `csrc/triplane_bins.cuh`. `sample_triplane`
 runs them through one `autograd.Function` (`ops.triplane.TriplaneSample`):
 for tensors that lie on the CPU it takes the plain versions
 (`ops/triplane.py`); for CUDA tensors it launches the kernels or raises.
+The kernels read bf16 planes: float32 planes are rounded to bf16 at their
+boundary (`sample_bf16_planes`), as the JAX package's Pallas path reads
+its planes at every dtype, so a float32 generator runs the same kernels.
 
 The fused kernel (`csrc/triplane_sample_fused.cu`) replaces TPU kernels
 B5a, `_resident_kernel_fused` with `_decode_tail`, and B5b,
@@ -301,16 +304,32 @@ def sample_triplane(planes_cl: torch.Tensor,
     """Averaged triplane features at normalized coords, differentiable to
     the planes and the coords.
 
-    planes_cl: (B, 3, R, R, 32) channel-last planes; coords: (B, N, 3)
-    float32 in [-1, 1]. Returns (B, N, 32) in the planes' dtype. On the
-    CPU the planes may be float32 or bfloat16; the kernels take bfloat16.
-    The backward runs B4 when only the planes want a gradient, else B2.
+    planes_cl: (B, 3, R, R, 32) channel-last planes, float32 or bfloat16;
+    coords: (B, N, 3) float32 in [-1, 1]. On the CPU it returns (B, N, 32)
+    in the planes' dtype, float32 end to end for float32 planes (the JAX
+    package's XLA path). For CUDA tensors it runs `sample_bf16_planes`
+    on the kernels. The backward runs B4 when only the planes want a
+    gradient, else B2.
     """
     _check(planes_cl, coords)
     if planes_cl.device.type == 'cpu':
         return triplane.plain_sampler(planes_cl, coords)
-    return triplane.TriplaneSample.apply(planes_cl, coords, launch,
-                                         launch_grad, launch_grad_planes)
+    return sample_bf16_planes(planes_cl, coords)
+
+
+def sample_bf16_planes(planes_cl: torch.Tensor, coords: torch.Tensor,
+                       forward_fn=launch, grad_fn=launch_grad,
+                       grad_planes_fn=launch_grad_planes) -> torch.Tensor:
+    """The card's sampler: the kernels (B1, B2, B4; or functions with their
+    signatures) on the planes rounded to bfloat16, as the JAX package's
+    Pallas path reads them at every dtype (`plane_layout_for_dma` casts
+    the planes to bf16). Returns the kernel's bf16 features; the planes'
+    gradient is the kernel's, cast to bf16 and, through the rounding's
+    backward, back to the planes' dtype, as the JAX custom VJP casts it
+    and the generator's `astype` takes it back."""
+    return triplane.TriplaneSample.apply(planes_cl.to(torch.bfloat16),
+                                         coords, forward_fn, grad_fn,
+                                         grad_planes_fn)
 
 
 def _check_decode(planes_cl: torch.Tensor, w0: torch.Tensor,

@@ -4,9 +4,10 @@ composite (PyTorch port of `nerf_from_image_tpu/render/renderer.py`).
 The field is `sample_fn(points, requests) -> dict`, as in the JAX package.
 The port renders sigma and rgb with a perspective camera (with an optional
 principal point and bbox crop), deterministically or with jittered depths
-and random PDF draws, and composites the world points into the semantics
-slot on request (`compute_coords`, the encoder distillation's target);
-normals and the K-channel semantics wait for later slices. The render
+and random PDF draws, and on request the normals (`compute_normals`, the
+GAN evaluation's images), the K-channel palette probabilities
+(`compute_semantics`) or the world points in the semantics slot
+(`compute_coords`, the encoder distillation's target). The render
 differentiates to the field
 and to the camera, as JAX's does: near/far, the coarse weights and the
 fine depths are detached, and the points of both passes carry the
@@ -32,7 +33,9 @@ class RenderOutput:
     rgb: torch.Tensor  # (B, H, W, C)
     depth: torch.Tensor  # (B, H, W)
     mask: torch.Tensor  # (B, H, W)
-    # The composited world points with `compute_coords` (B, H, W, 3).
+    normals: Optional[torch.Tensor] = None  # (B, H, W, 3)
+    # The palette probabilities (B, H, W, K), or with `compute_coords` the
+    # composited world points (B, H, W, 3).
     semantics: Optional[torch.Tensor] = None
     # Sum of the passes' overflow_resid (0: a direct gather never
     # overflows; the field exists because the JAX package's callers read
@@ -54,6 +57,8 @@ def render(sample_fn: SampleFn, height: int, width: int,
                                Dict[str, torch.Tensor]]] = None,
            center: Optional[torch.Tensor] = None,
            bbox: Optional[torch.Tensor] = None,
+           compute_normals: bool = False,
+           compute_semantics: bool = False,
            compute_coords: bool = False) -> RenderOutput:
     """Renders a batch of views.
 
@@ -67,9 +72,14 @@ def render(sample_fn: SampleFn, height: int, width: int,
         'pdf_u': uniform (B * H * W, S)}, as the JAX package injects them.
       center: optional (B, 2) principal point in [0, 1].
       bbox: optional (B, 2, 2) normalized crop [[x0, y0], [w, h]].
+      compute_normals: also request 'normals' of `sample_fn` and composite
+        them with the detached weights into `normals`.
+      compute_semantics: also request 'semantics' and composite them with
+        the weights themselves into `semantics`.
       compute_coords: also request 'coords' of `sample_fn` and composite
-        the coarse and fine points into `semantics` with the weights
-        themselves, not detached, as the JAX package does.
+        the coarse and fine points into `semantics` (in place of the
+        palette probabilities) with the weights themselves, not detached,
+        as the JAX package does.
     """
     b = cam2world.shape[0]
     s = depth_samples_per_ray
@@ -84,7 +94,10 @@ def render(sample_fn: SampleFn, height: int, width: int,
     query_points, depth_values = rays_lib.compute_query_points_from_rays(
         ray_origins, ray_directions, near, far, s, rng=rng_coarse)
 
-    requests = ('sigma', 'rgb') + (('coords',) if compute_coords else ())
+    extra = [name for name, on in (('normals', compute_normals),
+                                   ('semantics', compute_semantics),
+                                   ('coords', compute_coords)) if on]
+    requests = ('sigma', 'rgb') + tuple(extra)
 
     def unflatten(v):
         return v.reshape(b, height, width, s, -1)
@@ -93,7 +106,7 @@ def render(sample_fn: SampleFn, height: int, width: int,
     sigma = unflatten(out_coarse['sigma'])[..., 0]
     rgb = unflatten(out_coarse['rgb'])
     overflow_resid = out_coarse.get('overflow_resid')
-    coords = unflatten(out_coarse['coords']) if compute_coords else None
+    per_sample = {k: unflatten(out_coarse[k]) for k in extra}
 
     weights = compositing.render_volume_density_weights_only(
         sigma, ray_directions, depth_values).detach()
@@ -115,12 +128,17 @@ def render(sample_fn: SampleFn, height: int, width: int,
     depth_values = torch.cat((depth_values, z_samples), dim=-1)
     sigma = torch.cat((sigma, unflatten(out_fine['sigma'])[..., 0]), dim=-1)
     rgb = torch.cat((rgb, unflatten(out_fine['rgb'])), dim=-2)
-    if compute_coords:
-        coords = torch.cat((coords, unflatten(out_fine['coords'])), dim=-2)
+    for k in extra:
+        per_sample[k] = torch.cat((per_sample[k], unflatten(out_fine[k])),
+                                  dim=-2)
 
-    rgb_map, depth_map, mask, semantic_map = compositing.composite(
-        sigma, rgb, ray_directions, depth_values, semantics=coords,
-        white_background=white_background)
+    # Coordinates take the semantics slot, as in the JAX package.
+    semantics = per_sample.get('coords', per_sample.get('semantics'))
+    rgb_map, depth_map, mask, normal_map, semantic_map = \
+        compositing.composite(sigma, rgb, ray_directions, depth_values,
+                              normals=per_sample.get('normals'),
+                              semantics=semantics,
+                              white_background=white_background)
     return RenderOutput(rgb=rgb_map, depth=depth_map, mask=mask,
-                        semantics=semantic_map,
+                        normals=normal_map, semantics=semantic_map,
                         overflow_resid=overflow_resid)

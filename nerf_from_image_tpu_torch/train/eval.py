@@ -1,0 +1,343 @@
+"""GAN training evaluation: FID and the image families (PyTorch port of
+`nerf_from_image_tpu/train/eval.py`).
+
+- The real images' Inception statistics are computed once from the
+  train-eval split and cached to `fid_stats_<dataset>_train.npz`
+  (`real_stats`).
+- The evaluation indices, the novel-view permutation and the frozen
+  latents `z_fid` follow the reference's protocol: seed 1234, at most
+  8000 images, another view of the same object for the permutation.
+- `evaluate` renders the evaluation set with the EMA generator in batches
+  of `eval_batch_size` (a straggler is padded with its last row and the
+  padded rows are left out of every statistic), computes the untruncated
+  FID, logs the `img_eval_gen/*` images of the first batch (with normals
+  and semantics, which only the first batch renders) and returns the FID
+  and whether it is the best so far, which gates `checkpoint_best`.
+- `log_training_images` logs the `img/*` family: the real images of a
+  random training batch, G's render of random latents from their poses
+  (rgb, depth, mask, normals) and the EMA generator's (rgb, normals,
+  semantics).
+
+The renders are gradient-free and deterministic (no depth jitter), as in
+the JAX package. They run the generator's default sampler: kernel B1 on
+the card, and for the normals B1 again and B2's coordinate gradient. The
+JAX evaluator renders unfused (its generator's `fuse_decode` is off), so
+B5a does not run here.
+
+Encoder and class conditioning (the reconstruction metrics, the test
+split's evaluation and the `_test` families) are not ported yet and raise
+NotImplementedError.
+`times` accumulates the seconds of the renders, the Inception forwards
+(the real images' included), the statistics with their matrix square
+root, and the training images.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from nerf_from_image_tpu_torch.device import DeviceLike, resolve_device
+from nerf_from_image_tpu_torch.metrics import fid as fid_lib
+from nerf_from_image_tpu_torch.models.generator import Generator
+from nerf_from_image_tpu_torch.render.renderer import RenderOutput, render
+from nerf_from_image_tpu_torch.utils import io as io_lib
+
+N_IMAGES_FID_MAX = 8000  # the Pix2NeRF protocol
+FLAG_MODES = "GAN training's flag-only modes"
+
+
+def compute_eval_indices(n_images: int, dataset_name: str,
+                         rng: np.random.RandomState) -> np.ndarray:
+    """The evaluation image indices."""
+    if n_images > N_IMAGES_FID_MAX:
+        return np.sort(rng.permutation(n_images)[:N_IMAGES_FID_MAX])
+    if dataset_name.startswith('imagenet_'):
+        out = []
+        remaining = n_images
+        while remaining > 0:
+            out.append(rng.permutation(n_images)[:remaining])
+            remaining -= len(out[-1])
+        return np.sort(np.concatenate(out))
+    return np.arange(n_images)
+
+
+def compute_view_perm(indices: np.ndarray, views_per_object: Optional[int],
+                      rng: np.random.RandomState) -> np.ndarray:
+    """Novel-view permutation: the same object, another view."""
+    if not views_per_object or views_per_object == 1:
+        return indices[rng.permutation(len(indices))]
+    obj_index: Dict[int, list] = {}
+    for idx in indices:
+        obj_index.setdefault(int(idx) // views_per_object, []).append(int(idx))
+    perm = []
+    for idx in indices:
+        views = obj_index[int(idx) // views_per_object]
+        if len(views) == 1:
+            perm.append(views[0])
+            continue
+        while True:
+            tentative = int(rng.randint(len(views)))
+            if views[tentative] != int(idx):
+                perm.append(views[tentative])
+                break
+    return np.asarray(perm, dtype=np.int64)
+
+
+def _to01(rgb_nhwc: torch.Tensor) -> torch.Tensor:
+    return rgb_nhwc.clamp(-1, 1).permute(0, 3, 1, 2).float() / 2 + 0.5
+
+
+def _nchw01(x: torch.Tensor) -> np.ndarray:
+    """(B, H, W, C) in [-1, 1] -> (B, C, H, W) numpy in [0, 1]."""
+    return x.permute(0, 3, 1, 2).float().cpu().numpy() / 2 + 0.5
+
+
+class GANEvaluator:
+    """Periodic training evaluation (built once, called at each eval).
+
+    `inception` maps (B, 3, H, W) images in [0, 1] to (B, D) activations
+    (`models.inception.InceptionV3FID`); None turns FID off.
+    """
+
+    def __init__(self, cfg, dataset_config: dict, dataset_name: str,
+                 train_split, train_eval_split,
+                 inception: Optional[Callable] = None,
+                 use_encoder: bool = False, use_class: bool = False,
+                 eval_batch_size: int = 8,
+                 stats_cache_dir: Optional[str] = None, seed: int = 1234,
+                 device: DeviceLike = None):
+        if use_encoder or use_class:
+            raise NotImplementedError(
+                'the evaluation of encoder or class conditioning is not '
+                f'ported yet (ROADMAP queue A: {FLAG_MODES})')
+        self.cfg = cfg
+        self.dataset_config = dataset_config
+        self.dataset_name = dataset_name
+        self.train_split = train_split
+        self.train_eval_split = train_eval_split
+        self.inception = inception
+        self.eval_bs = eval_batch_size
+        self.stats_cache_dir = stats_cache_dir
+        self.device = resolve_device(device)
+        self.best_fid = float('inf')
+        self.times = {'render_s': 0.0, 'inception_s': 0.0, 'stats_s': 0.0,
+                      'images_s': 0.0}
+
+        rng = np.random.RandomState(seed)
+        n = len(train_eval_split.images)
+        if train_eval_split.eval_indices is None:
+            train_eval_split.eval_indices = compute_eval_indices(
+                n, dataset_name, rng)
+        if train_eval_split.eval_indices_perm is None:
+            train_eval_split.eval_indices_perm = compute_view_perm(
+                train_eval_split.eval_indices,
+                dataset_config.get('views_per_object'), rng)
+
+        # The frozen latents, from the seed again.
+        rng2 = np.random.RandomState(seed)
+        self.z_fid = rng2.randn(len(train_eval_split.eval_indices),
+                                cfg.latent_dim).astype(np.float32)
+
+    def _sync(self):
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+
+    def _tensor(self, a) -> Optional[torch.Tensor]:
+        if a is None:
+            return None
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=self.device)
+
+    def _field(self, split, idx, name) -> Optional[torch.Tensor]:
+        v = getattr(split, name)
+        return None if v is None else self._tensor(v[idx])
+
+    # ---- Real-data Inception statistics --------------------------------
+
+    def _stats_cache_path(self, tag: str) -> Optional[str]:
+        if self.stats_cache_dir is None:
+            return None
+        return os.path.join(self.stats_cache_dir,
+                            f'fid_stats_{self.dataset_name}_{tag}.npz')
+
+    def real_stats(self, split, tag: str):
+        """The (mu, sigma) of a split's real images, computed once and
+        cached on the split and in `stats_cache_dir`; None without
+        Inception."""
+        if split.fid_stats is not None:
+            return split.fid_stats
+        if self.inception is None:
+            return None
+        path = self._stats_cache_path(tag)
+        if path is not None and os.path.exists(path):
+            data = io_lib.load_npz(path)
+            split.fid_stats = (data['mu'], data['sigma'])
+            return split.fid_stats
+        acts = []
+        images = split.images
+        bs = self.eval_bs
+        for i in range(0, len(images), bs):
+            im = images[i:i + bs]
+            pad = bs - len(im)
+            if pad:
+                im = np.concatenate([im, np.repeat(im[-1:], pad, 0)], 0)
+            im = self._tensor(im[..., :3].transpose(0, 3, 1, 2)) / 2 + 0.5
+            with torch.no_grad():
+                a = self.inception(im).float().cpu().numpy()
+            acts.append(a[:bs - pad] if pad else a)
+        split.fid_stats = fid_lib.calculate_stats(np.concatenate(acts, 0))
+        if path is not None:
+            io_lib.save_npz(path, mu=split.fid_stats[0],
+                            sigma=split.fid_stats[1])
+        return split.fid_stats
+
+    # ---- Rendering ------------------------------------------------------
+
+    def render(self, gen: Generator, z: torch.Tensor, pose: torch.Tensor,
+               focal: Optional[torch.Tensor], center: Optional[torch.Tensor],
+               bbox: Optional[torch.Tensor], compute_normals: bool,
+               compute_semantics: bool) -> RenderOutput:
+        """One gradient-free render of latents `z` from the given cameras
+        (the normals take their point gradient inside)."""
+        cfg = self.cfg
+        with torch.no_grad():
+            state = gen.synthesize(gen.map(z))
+            return render(lambda pts, reqs: gen.sample(state, pts, reqs),
+                          cfg.resolution, cfg.resolution, pose, focal,
+                          cfg.scene_range, cfg.white_background,
+                          cfg.depth_samples_per_ray, center=center,
+                          bbox=bbox,
+                          compute_normals=compute_normals,
+                          compute_semantics=compute_semantics)
+
+    def _semantics_image(self, semantics: torch.Tensor) -> np.ndarray:
+        palette = self._tensor(io_lib.get_color_palette(
+            self.cfg.attention_values))
+        return _nchw01(semantics.float() @ palette)
+
+    # ---- The evaluation -------------------------------------------------
+
+    def evaluate(self, state, iteration: int,
+                 writer=None) -> Tuple[Optional[float], bool]:
+        """The evaluation of `state.gen_ema`: returns (FID or None,
+        whether it is the best FID so far)."""
+        fid_untrunc = self._evaluate_mode(state.gen_ema, iteration, writer)
+        if writer is not None and fid_untrunc is not None:
+            writer.add_scalar('generation/fid_untrunc', fid_untrunc,
+                              iteration)
+        is_best = fid_untrunc is not None and fid_untrunc < self.best_fid
+        if is_best:
+            self.best_fid = fid_untrunc
+        return fid_untrunc, is_best
+
+    def log_training_images(self, state, iteration: int, writer,
+                            rng: np.random.RandomState) -> None:
+        """The img/* family: a random training batch's real images, then
+        renders of random latents from its poses by G (img/rgb, depth,
+        mask, normals) and by its EMA (img/inference, inference_normals,
+        inference_semantics)."""
+        if writer is None:
+            return
+        t0 = time.perf_counter()
+        cfg = self.cfg
+        bs = self.eval_bs
+        split = self.train_split
+        idx = rng.randint(len(split.images), size=(bs,))
+        pose = self._field(split, idx, 'tform_cam2world')
+        focal = self._field(split, idx, 'focal_length')
+        center = self._field(split, idx, 'center')
+        bbox = self._field(split, idx, 'bbox')
+        target = split.images[idx]
+        z = self._tensor(rng.randn(bs, cfg.latent_dim).astype(np.float32))
+        writer.add_images('img/ref',
+                          target[..., :3].transpose(0, 3, 1, 2) / 2 + 0.5,
+                          iteration)
+        for tag, gen in (('rgb', state.gen), ('inference', state.gen_ema)):
+            out = self.render(gen, z, pose, focal, center, bbox, True,
+                              cfg.attention_values > 0)
+            writer.add_images(f'img/{tag}', _to01(out.rgb).cpu().numpy(),
+                              iteration)
+            if tag == 'rgb':
+                depth = out.depth.float().cpu().numpy()
+                writer.add_images(
+                    'img/depth', (depth / max(depth.max(), 1e-9))[:, None],
+                    iteration)
+                writer.add_images(
+                    'img/mask',
+                    np.clip(out.mask.float().cpu().numpy(), 0, 1)[:, None],
+                    iteration)
+            writer.add_images(
+                'img/normals' if tag == 'rgb' else 'img/inference_normals',
+                _nchw01(out.normals), iteration)
+            if tag == 'inference' and out.semantics is not None:
+                writer.add_images('img/inference_semantics',
+                                  self._semantics_image(out.semantics),
+                                  iteration)
+        self.times['images_s'] += time.perf_counter() - t0
+
+    def _evaluate_mode(self, gen: Generator, iteration: int,
+                       writer) -> Optional[float]:
+        """The unconditional evaluation over the train-eval split: renders
+        z_fid from the evaluation cameras, logs the first batch's images
+        and returns the untruncated FID (None without Inception)."""
+        cfg = self.cfg
+        split = self.train_eval_split
+        target_idx = np.asarray(split.eval_indices)
+        z_fid = self.z_fid
+        bs = self.eval_bs
+        n = len(target_idx)
+        activations = []
+        for start in range(0, n, bs):
+            t0 = time.perf_counter()
+            idx = target_idx[start:start + bs]
+            valid = len(idx)
+            z = z_fid[start:start + valid]
+            if valid < bs:  # pad the straggler; the padded rows drop below
+                idx = np.concatenate([idx, np.repeat(idx[-1:], bs - valid)])
+                z = np.concatenate([z, np.repeat(z[-1:], bs - valid, 0)])
+            first = start == 0
+            out = self.render(
+                gen, self._tensor(z),
+                self._field(split, idx, 'tform_cam2world'),
+                self._field(split, idx, 'focal_length'),
+                self._field(split, idx, 'center'),
+                self._field(split, idx, 'bbox'), first,
+                first and cfg.attention_values > 0)
+            rgb = _to01(out.rgb)
+            self._sync()
+            t1 = time.perf_counter()
+            self.times['render_s'] += t1 - t0
+
+            if first and writer is not None:
+                writer.add_images('img_eval_gen/static_untrunc',
+                                  rgb.cpu().numpy(), iteration)
+                writer.add_images('img_eval_gen/static_normals_untrunc',
+                                  _nchw01(out.normals), iteration)
+                if out.semantics is not None:
+                    writer.add_images(
+                        'img_eval_gen/static_semantics_untrunc',
+                        self._semantics_image(out.semantics), iteration)
+            if self.inception is not None:
+                t1 = time.perf_counter()
+                with torch.no_grad():
+                    a = self.inception(rgb).float().cpu().numpy()
+                activations.append(a[:valid])
+                self.times['inception_s'] += time.perf_counter() - t1
+
+        if self.inception is None:
+            return None
+        t0 = time.perf_counter()
+        real = self.real_stats(self.train_eval_split, 'train')
+        t1 = time.perf_counter()
+        self.times['inception_s'] += t1 - t0
+        acts = np.concatenate(activations, 0)
+        assert len(acts) == n, (len(acts), n)
+        fid = float(fid_lib.calculate_frechet_distance(
+            *fid_lib.calculate_stats(acts), *real))
+        self.times['stats_s'] += time.perf_counter() - t1
+        return fid

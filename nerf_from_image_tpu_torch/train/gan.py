@@ -45,7 +45,6 @@ from nerf_from_image_tpu_torch.render.renderer import RenderOutput, render
 
 BLUR_WARMUP_ITERS = 12500
 LR_WARMUP_ITERS = 2000
-ADA_TARGET = 0.6  # the mean sign of the real logits ADA steers to
 
 Batch = Dict[str, object]
 
@@ -81,6 +80,7 @@ class GANConfig:
     eikonal: float = 0.1
     augment_ada: bool = False
     augment_p_max: float = 0.0
+    ada_target: float = 0.6  # the mean sign of the real logits ADA steers to
     clip_gradient_norm: float = 100.0
     lr_g: float = 0.0025
     lr_d: float = 0.002
@@ -402,8 +402,8 @@ def d_step(state: GANTrainState, batch: Batch, fake_batch: Batch,
         else:
             ada_interval, ada_rampup = 4, 500000.0
             step = (cfg.batch_size * ada_interval) / ada_rampup
-            delta = step if float(sign_real) > ADA_TARGET else (
-                -step if float(sign_real) < ADA_TARGET else 0.0)
+            delta = step if float(sign_real) > cfg.ada_target else (
+                -step if float(sign_real) < cfg.ada_target else 0.0)
             state.augment_p = min(max(state.augment_p + delta, 0.0),
                                   cfg.augment_p_max)
     state.iteration = i + 1

@@ -6,7 +6,8 @@ layout in `cli/run.py:convert_reference_checkpoint`): `model`,
 are the port's module names), `optimizer_g`, `optimizer_d` (torch Adam
 state dicts), `iteration`, `augment_p`, `ppl_running_avg`, `best_fid`
 and `random_state` (the state's torch generator and, when given, the
-host numpy RandomState). A reference checkpoint restores through the
+training loop's host state: its numpy RandomState, its batch sampler's
+permutation and position, and its latent generator). A reference checkpoint restores through the
 same loader, so `--resume_from` takes one loader for its three forms
 (`resolve_gan_checkpoint`): `name` (that run's latest), `name+iter` and a
 literal `.pth` path.
@@ -84,31 +85,64 @@ def resolve_gan_checkpoint(root_path: str, resume_from: str) -> str:
 
 
 def _random_state(generator: torch.Generator,
-                  rng_np: Optional[np.random.RandomState]) -> dict:
+                  rng_np: Optional[np.random.RandomState],
+                  sampler=None,
+                  latent_rng: Optional[torch.Generator] = None) -> dict:
     out = {'torch_generator': generator.get_state(),
            'torch_generator_device': generator.device.type}
     if rng_np is not None:
         out['numpy'] = rng_np.get_state()
+    if sampler is not None:
+        ss = sampler.get_state()
+        out['sampler'] = {'perm': ss['perm'], 'pos': ss['pos']}
+    if latent_rng is not None:
+        out['latent_generator'] = latent_rng.get_state()
+        out['latent_generator_device'] = latent_rng.device.type
     return out
+
+
+def _set_generator(generator: torch.Generator, saved: dict,
+                   key: str) -> None:
+    """A generator saved on another device type keeps its state (CPU and
+    CUDA states differ in form)."""
+    if (saved.get(key) is not None and
+            saved.get(f'{key}_device') == generator.device.type):
+        generator.set_state(saved[key])
 
 
 def _restore_random_state(saved: Optional[dict], generator: torch.Generator,
                           rng_np: Optional[np.random.RandomState]) -> None:
-    """Restores what `_random_state` saved; a generator saved on another
-    device type keeps its state (CPU and CUDA states differ in form)."""
+    """Restores the torch generator and the RandomState that
+    `_random_state` saved."""
     if not saved:
         return
-    if (saved.get('torch_generator') is not None and
-            saved.get('torch_generator_device') == generator.device.type):
-        generator.set_state(saved['torch_generator'])
+    _set_generator(generator, saved, 'torch_generator')
     if rng_np is not None and saved.get('numpy') is not None:
         rng_np.set_state(saved['numpy'])
 
 
+def restore_loop_state(saved: Optional[dict],
+                       rng_np: np.random.RandomState, sampler,
+                       latent_rng: torch.Generator) -> None:
+    """Restores a training loop's host state from a checkpoint's
+    `random_state`; the pieces it lacks (a reference checkpoint has no
+    sampler) keep their fresh values."""
+    if not saved:
+        return
+    if saved.get('numpy') is not None:
+        rng_np.set_state(saved['numpy'])
+    if saved.get('sampler') is not None:
+        sampler.set_state(saved['sampler'])
+    _set_generator(latent_rng, saved, 'latent_generator')
+
+
 def gan_checkpoint(state, best_fid: Optional[float] = None,
-                   rng_np: Optional[np.random.RandomState] = None
+                   rng_np: Optional[np.random.RandomState] = None,
+                   sampler=None,
+                   latent_rng: Optional[torch.Generator] = None
                    ) -> Dict[str, Any]:
-    """A `train.gan.GANTrainState` in the reference's checkpoint layout."""
+    """A `train.gan.GANTrainState` in the reference's checkpoint layout,
+    with the training loop's host state where given."""
     return {
         'model': state.gen.state_dict(),
         'model_ema': state.gen_ema.state_dict(),
@@ -120,7 +154,8 @@ def gan_checkpoint(state, best_fid: Optional[float] = None,
         'ppl_running_avg': (None if state.ppl_running_avg < 0 else
                             state.ppl_running_avg),
         'best_fid': best_fid,
-        'random_state': _random_state(state.rng, rng_np),
+        'random_state': _random_state(state.rng, rng_np, sampler,
+                                      latent_rng),
     }
 
 

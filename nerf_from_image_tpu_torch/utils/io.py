@@ -1,6 +1,7 @@
 """Host-side IO helpers (copies of the local-path part of
 `nerf_from_image_tpu/utils/io.py`, which the port may not import): the
-.npz files of the inversion report and the endless batch sampler.
+.npz files of the inversion report, the endless batch sampler and the
+semantic colour palette.
 
 The JAX package's file functions also take gs:// paths; these take local
 paths only, so the port's other file calls are Python's own.
@@ -8,6 +9,7 @@ paths only, so the port's other file calls are Python's own.
 
 from __future__ import annotations
 
+import colorsys
 import os
 
 import numpy as np
@@ -63,3 +65,10 @@ class EndlessSampler:
         self._pos = int(state['pos'])
         if 'rng' in state:
             self.rng.set_state(state['rng'])
+
+
+def get_color_palette(n: int) -> np.ndarray:
+    """n distinct colours in [-1, 1], (n, 3) float32: the GAN evaluation's
+    palette for the semantics images."""
+    colors = [colorsys.hsv_to_rgb(i / n, 0.65, 0.9) for i in range(n)]
+    return np.asarray(colors, dtype=np.float32) * 2.0 - 1.0

@@ -1,11 +1,12 @@
-"""Scalar logging: JSONL always, TensorBoard when it imports (a copy
-of `nerf_from_image_tpu/utils/logging.py`, which the port may not import,
-for local directories).
+"""Scalar and image logging: JSONL always, TensorBoard when it imports (a
+copy of `nerf_from_image_tpu/utils/logging.py`, which the port may not
+import, for local directories).
 
 Every scalar goes to `scalars.jsonl` in the log dir, and to TensorBoard
 through `torch.utils.tensorboard` when the `tensorboard` package is
 installed; a TensorBoard writer that fails to start is warned about, not
-swallowed. Image logging waits for its first caller (the GAN eval).
+swallowed. Images go to TensorBoard, or without it to one PNG strip per
+tag and step in the log dir (written by `data/image_io.py`).
 """
 
 from __future__ import annotations
@@ -15,9 +16,15 @@ import os
 import sys
 import time
 
+import numpy as np
+import torch
+
+from nerf_from_image_tpu_torch.data import image_io
+
 
 class SummaryWriter:
     def __init__(self, log_dir: str):
+        self.log_dir = log_dir
         os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, 'scalars.jsonl'), 'a')
         self._tb = None
@@ -39,6 +46,18 @@ class SummaryWriter:
         self._jsonl.flush()
         if self._tb is not None:
             self._tb.add_scalar(tag, value, step)
+
+    def add_images(self, tag: str, images, step: int):
+        """images: (N, C, H, W) in [0, 1], C 1 or 3."""
+        images = np.asarray(images, dtype=np.float32)
+        if self._tb is not None:
+            self._tb.add_images(tag, torch.from_numpy(images), step)
+            return
+        arr = (np.clip(images, 0, 1) * 255).astype(np.uint8)
+        strip = arr.transpose(0, 2, 3, 1).reshape(-1, arr.shape[3],
+                                                  arr.shape[1])
+        image_io.write_png(os.path.join(
+            self.log_dir, f'{tag.replace("/", "_")}_{step}.png'), strip)
 
     def close(self):
         self._jsonl.close()

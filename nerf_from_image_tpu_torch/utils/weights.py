@@ -13,7 +13,8 @@ own state-dict keys, so it reads the raw files. They live under
                                -> the encoder's backbone(s)
 
 A missing file is handled as the JAX CLI handles it, with a printed
-warning: random LPIPS, FID off, a random backbone.
+warning: random LPIPS, a random backbone; FID off in the inversion, a
+random Inception in GAN training's evaluation.
 """
 
 from __future__ import annotations
@@ -70,17 +71,26 @@ def load_lpips(root_path: str, device: DeviceLike = None) -> LPIPS:
     return lpips
 
 
-def load_inception(root_path: str,
-                   device: DeviceLike = None) -> Optional[InceptionV3FID]:
-    """`InceptionV3FID` with the published weights, or None (FID off) with
-    a warning when the file is missing."""
+def load_inception(root_path: str, device: DeviceLike = None,
+                   random_if_missing: bool = False
+                   ) -> Optional[InceptionV3FID]:
+    """`InceptionV3FID` with the published weights. When the file is
+    missing: None (FID off), or with `random_if_missing` random weights
+    (seed 0), each with a warning."""
     path = os.path.join(weights_dir(root_path), INCEPTION_FILE)
     if not os.path.exists(path):
-        print('WARNING: Inception weights not found at', path,
-              '- FID reporting disabled')
-        return None
+        if not random_if_missing:
+            print('WARNING: Inception weights not found at', path,
+                  '- FID reporting disabled')
+            return None
+        print('WARNING: Inception weights not found at', path, '- FID '
+              'uses a randomly initialized Inception (numbers are '
+              'self-consistent only)')
+        sd = convert.random_inception_state_dict(0)
+    else:
+        sd = load_state_dict_file(path)
     net = InceptionV3FID(device=device).eval()
-    convert.load_inception_state_dict(net, load_state_dict_file(path))
+    convert.load_inception_state_dict(net, sd)
     return net
 
 

@@ -26,13 +26,11 @@ each side take minutes on the CPU, so that case is `slow`; the quick case
 runs without the Inception file (FID off on both sides, as both CLIs do
 without it).
 
-The port's own loop, at --inv_steps 2 over 16 images: the second batch,
-whose PnP ran on the worker thread while the first batch's steps were
-queued, equals a serial `bootstrap_batch` + `evaluate_checkpoint` of the
-same images exactly; a run resumed from a report checkpoint at image 8
-ends with the uninterrupted run's report exactly; the `monitor_b0/*` and
-`report/*` scalars land in scalars.jsonl. The encoder's load-or-train
-branch runs with small step counts. Unported branches raise.
+The port's own batch loop (the overlap of PnP with the steps, the
+resume from a report checkpoint, the logs) is held in
+`test_torch_port_cli_overlap.py`, which takes this file's fixture. The
+encoder's load-or-train branch runs with small step counts. Unported
+branches raise.
 """
 
 import functools
@@ -54,14 +52,10 @@ from nerf_from_image_tpu_torch.cli import run as cli_run
 from nerf_from_image_tpu_torch.cli import train_encoder as cli_train_encoder
 from nerf_from_image_tpu_torch.data import fixtures
 from nerf_from_image_tpu_torch.data import loaders
-from nerf_from_image_tpu_torch.invert import optimizer as inv_opt
-from nerf_from_image_tpu_torch.invert import pipeline as pipe
-from nerf_from_image_tpu_torch.invert import pnp
 from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
 from nerf_from_image_tpu_torch.train import gan
 from nerf_from_image_tpu_torch.utils import checkpoint
 from nerf_from_image_tpu_torch.utils import convert
-from nerf_from_image_tpu_torch.utils import weights
 
 KNOBS = ['--dataset', 'p3d_car', '--run_inversion', '--resolution', '32',
          '--latent_dim', '512', '--attention_values', '4',
@@ -223,103 +217,6 @@ def _scalars(report_dir):
         return [json.loads(line) for line in f]
 
 
-def test_loop_overlap_resume_and_logs(assets, monkeypatch):
-    monkeypatch.chdir(assets)
-    argv = KNOBS + ['--resume_from', 'gan.pth', '--data_path',
-                    str(assets / 'data16'), '--coord_resume_from',
-                    str(assets / 'enc.pth'), '--inv_steps', '2']
-    kept = {}
-    save = pipe.save_report_checkpoint
-
-    def keep_at_8(path, report, idx, key):
-        save(path, report, idx, key)
-        if idx == 8:
-            kept['path'] = path + '.at8'
-            shutil.copy(path, kept['path'])
-
-    monkeypatch.setattr(pipe, 'save_report_checkpoint', keep_at_8)
-    monkeypatch.setattr(cli_inv, 'REPORT_CHECKPOINT_EVERY', 8)
-    first_root = str(assets / 'loop_a')
-    out = cli_run.main(argv + ['--root_path', first_root], device='cpu')
-    assert [b['images'] for b in out['batches']] == [8, 8]
-    assert [b['serial'] for b in out['batches']] == [True, False]
-    assert out['batches'][1]['pnp_wait_s'] >= 0
-    for key in ('encoder_ms', 'evaluation 0_ms', 'steps_ms',
-                'evaluation 2_ms'):
-        assert all(b[key] > 0 for b in out['batches']), key
-
-    tags = {s['tag'] for s in _scalars(out['report_dir'])}
-    for pname in ('psnr', 'lpips', 'rot_error', 'grad_norm_z',
-                  'grad_norm_R', 'grad_norm_s', 'grad_norm_t',
-                  'grad_norm_f'):
-        assert f'monitor_b0/{pname}' in tags, pname
-    for name in ('psnr', 'ssim', 'lpips', 'iou'):
-        assert f'report/{name}' in tags, name
-    monitor = [s for s in _scalars(out['report_dir'])
-               if s['tag'] == 'monitor_b0/psnr']
-    assert [s['step'] for s in monitor] == [0, 1]
-
-    # The second batch's step-0 entries against the serial path.
-    dataset_config, train, train_eval, test = _splits(str(assets / 'data16'))
-    rng = np.random.RandomState(1234)
-    cli_inv.build_eval_indices(train_eval, 8000, 1, rng)
-    cli_inv.build_eval_indices(test, 8000, 1, rng)
-    tsel = cli_inv.select_inversion_targets(
-        'p3d_car', dataset_config, True, False, train, train_eval, test,
-        test.eval_indices[8:16], test.eval_indices_perm[8:16])
-    t = {k: None if v is None else torch.as_tensor(
-        np.ascontiguousarray(v), dtype=torch.float32)
-        for k, v in tsel.items() if k != 'perm_cameras'}
-    perm = tuple(None if v is None else torch.as_tensor(v)
-                 for v in tsel['perm_cameras'])
-    cfg = gan.GANConfig(resolution=32, latent_dim=512, attention_values=4,
-                        plane_resolution=32, scene_range=1.4)
-    gen, _ = gan.make_models(cfg, device='cpu')
-    convert.load_reference_state_dict(
-        gen, checkpoint.load(str(assets / 'gan.pth'))['model_ema'])
-    encoder = BootstrapEncoder(512, device='cpu').eval()
-    encoder.load_state_dict(checkpoint.encoder_state_dict(
-        checkpoint.load(str(assets / 'enc.pth'))))
-    with torch.no_grad():
-        z_avg = gen.average_w(torch.Generator().manual_seed(1234), 10000)
-    _, _, z_init, cam2world, focal, _ = pipe.bootstrap_batch(
-        encoder, t['target_img'], pnp.get_focal_guesses(train.focal_length),
-        z_avg, 5.0)
-    params = pipe.init_inversion_params(z_init, cam2world, focal, True)
-    inv_cfg = inv_opt.InversionConfig(
-        resolution=32, depth_samples_per_ray=4, scene_range=1.4,
-        white_background=False, camera_flipped=True)
-    entry = pipe.make_report([0])[0]
-    pipe.evaluate_checkpoint(
-        pipe.EvalContext(gen=gen, lpips=weights.load_lpips(first_root,
-                                                            'cpu'),
-                         has_mask=True), inv_cfg, params, entry,
-        t['target_img_fid'], None, None, t['gt_cam2world'],
-        perm_cameras=perm, compute_rot_error=False)
-    for key, values in entry.items():
-        if values:
-            np.testing.assert_array_equal(out['report'][0][key][8:],
-                                          values[0], err_msg=key)
-
-    # Resumed at image 8 from the report checkpoint: the same report.
-    second_root = str(assets / 'loop_b')
-    report_dir = os.path.join(second_root, 'reports', 'gan.pth', CFG_STRING)
-    os.makedirs(report_dir)
-    shutil.copy(kept['path'],
-                os.path.join(report_dir, 'report_checkpoint.npz'))
-    resumed = cli_run.main(argv + ['--root_path', second_root],
-                           device='cpu')
-    assert [b['images'] for b in resumed['batches']] == [8]
-    assert resumed['report'].keys() == out['report'].keys()
-    for step, entry in out['report'].items():
-        assert resumed['report'][step].keys() == entry.keys()
-        for key, value in entry.items():
-            np.testing.assert_array_equal(resumed['report'][step][key],
-                                          value, err_msg=f'{step}/{key}')
-    assert not any(s['tag'].startswith('monitor_b0')
-                   for s in _scalars(resumed['report_dir']))
-
-
 def test_encoder_load_or_train(assets, monkeypatch, capsys):
     """No encoder file: the CLI distills one (here a tiny SegFormer for 3
     steps, a log every step, enc_latest every 2 and enc_<i> every 2) and
@@ -372,7 +269,6 @@ def test_encoder_load_or_train(assets, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize('extra,match', [
-    ([], 'GAN-training CLI'),
     (['--run_inversion', '--inv_export_demo_sample'], 'the demo'),
     (['--inv_manual_input_path', 'x.png'], 'the demo'),
     (['--run_inversion', '--mesh_shape', 'data:2'], 'several cards'),
@@ -395,13 +291,3 @@ def test_unported_dataset_features_raise(dataset, match):
     with pytest.raises(NotImplementedError, match=match):
         cli_run.main(['--dataset', dataset, '--run_inversion'],
                      device='cpu')
-
-
-def test_float32_on_the_card_is_refused(monkeypatch):
-    """The kernels take bfloat16 planes, so the card's CLI refuses
-    --compute_dtype float32 before any work (ROADMAP C)."""
-    monkeypatch.setattr(cli_run, 'resolve_device',
-                        lambda device: torch.device('cuda'))
-    with pytest.raises(NotImplementedError, match='float32 on the card'):
-        cli_run.main(['--dataset', 'p3d_car', '--run_inversion',
-                      '--compute_dtype', 'float32'])
