@@ -44,6 +44,15 @@ samples):
   (1000 SDF pretraining steps, iterations 0-3, the iteration-3
   evaluation with FID and the image families with normals and
   semantics, `latest` and `best`) and a resume to iteration 8;
+- the demo (`--inv_manual_input_path`) on the same fixture and files: a
+  photo as RGBA (its alpha the mask) and as RGB (GrabCut's mask), each
+  inverted at batch 1 and written as the strip [input | coords | recon |
+  normals | novel view];
+- the other datasets' generator features through both CLIs: a cub
+  fixture (StyleGAN noise, orthographic cameras) and a carla fixture (the
+  view-direction mapper), each inverted in one batch of 8 and trained for
+  one G and one D step at batch 32 from a reference-format checkpoint at
+  iteration 12,500;
 - SDF pretraining at the CLI's batch of 32 (the same generator, p3d_car's
   box, 31^3 stratified points an image, distance + 0.1 eikonal, Adam at
   0.0025, then EMA <- params);
@@ -115,6 +124,19 @@ Phases, each printed as one JSON line:
              seconds, peak memory; the checkpoints' iterations (4 and 8),
              the logged scalars (finite) and image tags; the evaluation's
              first render with normals against the plain versions
+  demo       the demo through `cli.run.main --inv_manual_input_path` on
+             the cli phase's fixture, for an RGBA and an RGB photo:
+             launches around the 30 steps (B1 60, B2 60, B3 60 + 30), each
+             evaluation (B5a 4) and the export renders (B1 6, B2 2), the
+             strip read back (128 x 640), each run's wall time
+  datasets   cub and carla fixtures (8 images each) through the inversion
+             CLI (one batch: launches around the steps, as the cli phase,
+             and the evaluations: B5a 4 each for cub, B1 4 each for carla,
+             whose view directions keep the decode unfused) and the
+             training CLI (resumed at 12,500: one G step, B1 2 + B4 2, one
+             D step, B1 2; no pretraining); ms per step (CUDA events),
+             peak memory; cub's inversion step (orthographic, injected
+             StyleGAN noise) and carla's G step against the plain versions
   pretrain   one warm-up step, then 5 pretraining steps (counts reset just
              before and read just after: no kernel runs), ms per step, peak
              memory, dist and eik per step, the EMA a copy of G; one step
@@ -161,6 +183,7 @@ from nerf_from_image_tpu_torch.core import augment
 from nerf_from_image_tpu_torch.core import pose as pose_lib
 from nerf_from_image_tpu_torch.core import rays as rays_lib
 from nerf_from_image_tpu_torch.data import fixtures
+from nerf_from_image_tpu_torch.data import image_io
 from nerf_from_image_tpu_torch.data import loaders
 from nerf_from_image_tpu_torch.invert import optimizer as inv
 from nerf_from_image_tpu_torch.invert import pipeline
@@ -178,6 +201,7 @@ from nerf_from_image_tpu_torch.render.renderer import normalize, render
 from nerf_from_image_tpu_torch.train import encoder as distill
 from nerf_from_image_tpu_torch.train import eval as train_eval
 from nerf_from_image_tpu_torch.train import gan
+from nerf_from_image_tpu_torch.train import loop
 from nerf_from_image_tpu_torch.train import pretrain
 from nerf_from_image_tpu_torch.utils import checkpoint
 from nerf_from_image_tpu_torch.utils import convert
@@ -319,6 +343,24 @@ TRAIN_CLI_IMAGE_TAGS = (
 # the trained EMA's bf16 planes: rgb, mask and semantics at RENDER_ATOL;
 # the normal map where the mask is above 0.5 at NORMAL_ATOL, the step
 # checks' 5e-2 for gradients (a normal is a normalized gradient).
+# The demo (--inv_manual_input_path) on the cli phase's fixture: one
+# image, the CLI's 30 steps (the launches of CLI_STEP_LAUNCHES), the two
+# evaluations through B5a and the export renders: the reconstruction with
+# normals (B1 twice and B2 once a pass) and the novel view (B1 2).
+DEMO_EVAL_LAUNCHES = CLI_EVAL_LAUNCHES
+DEMO_EXPORT_LAUNCHES = {'triplane_sample': 6, 'triplane_sample_grad': 2}
+DEMO_PANELS = 5  # input | coords | recon | normals | novel view
+# The other datasets' features: cub (StyleGAN noise, orthographic
+# cameras) and carla (the view-direction mapper), each through the
+# inversion CLI (one batch of 8, no Inception file) and the training CLI
+# (resumed at TRAIN_ITERATION for one G and one D step at batch 32).
+DATASET_IMAGES = 8
+DATASET_IMAGE_HW = {'cub': (240, 320), 'carla': (128, 128)}
+DATASET_EVAL_LAUNCHES = {'cub': {'triplane_sample_fused': 4},
+                         'carla': {'triplane_sample': 4}}
+DATASET_G = TRAIN_CLI_G
+DATASET_D = TRAIN_CLI_D
+CUB_SCALE = 0.6  # the orthographic step check's camera scale s
 NORMAL_ATOL = 5e-2
 
 # GAN training: p3d_car as the JAX CLI builds it
@@ -892,9 +934,8 @@ def render_forward(gen: Generator, z, cam, focal,
                    sampler=triplane_cuda.sample_triplane):
     """map -> synthesize -> render at bench.py's operating point."""
     state = gen.synthesize(gen.map(z))
-    return render(lambda pts, req: gen.sample(state, pts, req,
-                                              sampler=sampler),
-                  RES, RES, cam, focal, SCENE_RANGE, True, SAMPLES)
+    return render(gen.field(state, sampler), RES, RES, cam, focal,
+                  SCENE_RANGE, True, SAMPLES)
 
 
 def timed_renders(gen: Generator, z, cam, focal, repeats: int = 5
@@ -1049,8 +1090,8 @@ def profile_phase(gen, z, cam, focal, inversion_step, train_steps,
 
     @torch.no_grad()
     def render_state(state):
-        return render(lambda pts, req: gen.sample(state, pts, req), RES, RES,
-                      cam, focal, SCENE_RANGE, True, SAMPLES)
+        return render(gen.field(state), RES, RES, cam, focal, SCENE_RANGE,
+                      True, SAMPLES)
 
     state = synthesize()
     stages = {'map + synthesize': time_cuda(synthesize, 5, 1),
@@ -1753,7 +1794,7 @@ def train_phase(rows: dict):
     with torch.no_grad():
         source = batch()
         st = state.gen.synthesize(state.gen.map(source['z']))
-        out = render(lambda pts, req: state.gen.sample(st, pts, req),
+        out = render(state.gen.field(st),
                      2 * RES, 2 * RES, source['pose'], source['focal'],
                      cfg.scene_range, cfg.white_background, SAMPLES)
         hi = torch.cat((out.rgb, out.mask[..., None]), dim=-1)
@@ -2189,10 +2230,7 @@ def pipeline_phase(rows: dict, gen: Generator, lpips: LPIPS) -> None:
     with torch.no_grad():
         ws = gen.map(torch.from_numpy(rng.standard_normal(
             (BATCH, GEN_KWARGS['latent_dim'])).astype(np.float32)).to(dev))
-        state = gen.synthesize(ws)
-
-        def field(pts, reqs):
-            return gen.sample(state, pts, reqs)
+        field = gen.field(gen.synthesize(ws))
 
         gt_cam, gt_focal = p3d_cameras(rng, BATCH, dev)
         front = render(field, RES, RES, gt_cam, gt_focal, cfg.scene_range,
@@ -2202,7 +2240,7 @@ def pipeline_phase(rows: dict, gen: Generator, lpips: LPIPS) -> None:
         novel = render(field, RES, RES, perm_cam, perm_focal,
                        cfg.scene_range, cfg.white_background, SAMPLES,
                        bbox=perm_bbox).rgb
-        del state
+        del field
     target = torch.cat((front.rgb, front.mask[..., None]), dim=-1)
     perm = (perm_cam, perm_focal, None, perm_bbox)
 
@@ -2743,6 +2781,475 @@ def train_cli_phase(assets: dict, rows: dict) -> None:
          normals_check=check)
 
 
+def manual_photo(assets: dict, root: str) -> dict:
+    """A user's photo from the fixture's first test image: as RGBA with
+    its mask (car_val.mat's) as the alpha channel, and as RGB."""
+    import scipy.io
+    data = assets['data']
+    rgb = image_io.read_png(os.path.join(data, fixtures.IMAGES_DIR,
+                                         'car_pascal', 'test_0000.png'))
+    anno = scipy.io.loadmat(
+        os.path.join(data, 'p3d', 'p3d_sfm_image', 'img_anno',
+                     'car_val.mat'), struct_as_record=False,
+        squeeze_me=True)['images'][0]
+    alpha = (np.asarray(anno.mask) > 0).astype(np.uint8) * 255
+    paths = {'rgba': os.path.join(root, 'photo_rgba.png'),
+             'rgb': os.path.join(root, 'photo_rgb.png')}
+    image_io.write_png(paths['rgba'], np.concatenate((rgb, alpha[..., None]),
+                                                     axis=-1))
+    image_io.write_png(paths['rgb'], rgb)
+    return paths
+
+
+def counted_calls(calls: list, kind: str, fn):
+    """`fn`, appending (kind, ms on CUDA events, launches during the call)
+    to `calls` at each call."""
+    def wrapper(*args, **kwargs):
+        before = counts()
+        timer = (torch.cuda.Event(enable_timing=True),
+                 torch.cuda.Event(enable_timing=True))
+        timer[0].record()
+        out = fn(*args, **kwargs)
+        timer[1].record()
+        timer[1].synchronize()
+        calls.append((kind, timer[0].elapsed_time(timer[1]), {
+            name: n - before[name] for name, n in counts().items()}))
+        return out
+    return wrapper
+
+
+def move_surface_into_box(saved: dict) -> dict:
+    """Lowers the SDF of a GAN checkpoint's random generators by 1.5, as
+    the CPU tests do, so that its zero level lies in the box: the views
+    see a surface, not the background."""
+    for key in ('model', 'model_ema'):
+        bias = saved[key]['decoder.net.2.bias'].clone()
+        bias[0] -= 1.5
+        saved[key]['decoder.net.2.bias'] = bias
+    return saved
+
+
+def demo_phase(assets: dict) -> None:
+    """The demo end to end through `cli.run.main --inv_manual_input_path`
+    on the cli phase's fixture and files (its GAN with the surface moved
+    into the box): an RGBA photo (its alpha is the mask), then the same
+    photo as RGB (GrabCut's mask, cv2). Each inverts
+    the photo at batch 1 (30 steps, evaluations at 0 and 30) and writes
+    the strip [input | coords | recon | normals | novel view]; launches
+    are counted around the steps, each evaluation and the export; the
+    strip is read back."""
+    started = time.perf_counter()
+    work = os.path.join(os.path.dirname(assets['root']), 'demo')
+    os.makedirs(work)
+    photos = manual_photo(assets, work)
+    gan_path = os.path.join(work, 'gan.pth')
+    checkpoint.save(move_surface_into_box(checkpoint.load(assets['gan'])),
+                    gan_path)
+    calls = []
+    originals = (inv.run_inversion, pipeline.evaluate_checkpoint,
+                 cli_inversion.export_demo)
+    inv.run_inversion = counted_calls(calls, 'steps', originals[0])
+    pipeline.evaluate_checkpoint = counted_calls(calls, 'evaluation',
+                                                 originals[1])
+    cli_inversion.export_demo = counted_calls(calls, 'export', originals[2])
+    cwd = os.getcwd()
+    runs = {}
+    try:
+        os.chdir(work)
+        for kind in ('rgba', 'rgb'):
+            calls.clear()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = cli_run.main(
+                ['--dataset', 'p3d_car', '--inv_manual_input_path',
+                 photos[kind], '--resume_from', gan_path,
+                 '--coord_resume_from', assets['encoder'], '--root_path',
+                 assets['root'], '--data_path', assets['data']])
+            wall_s = time.perf_counter() - t0
+            strip = image_io.read_png(os.path.join(work, out['demo_path']))
+            os.rename(os.path.join(work, out['demo_path']),
+                      os.path.join(work, f'{kind}.png'))
+            runs[kind] = {'wall_s': wall_s, 'calls': list(calls),
+                          'total': counts(), 'out': out, 'strip': strip}
+    finally:
+        os.chdir(cwd)
+        (inv.run_inversion, pipeline.evaluate_checkpoint,
+         cli_inversion.export_demo) = originals
+
+    summary = {}
+    for kind, run in runs.items():
+        kinds = [c[0] for c in run['calls']]
+        if kinds != ['evaluation', 'steps', 'evaluation', 'export']:
+            raise AssertionError(f'demo {kind} calls: {kinds}')
+        want = {'steps': CLI_STEP_LAUNCHES, 'evaluation': DEMO_EVAL_LAUNCHES,
+                'export': DEMO_EXPORT_LAUNCHES}
+        for what, _, launched in run['calls']:
+            expect_launches(f'demo {kind} {what}', launched, **want[what])
+        total = {name: sum(c[2][name] for c in run['calls'])
+                 for name in run['total']}
+        if total != run['total']:
+            raise AssertionError(f'demo launches {run["total"]}, per call '
+                                 f'{total}')
+        strip = run['strip']
+        if strip.shape != (RES, DEMO_PANELS * RES, 3) or strip.dtype != \
+                np.uint8:
+            raise AssertionError(f'demo {kind} strip {strip.shape} '
+                                 f'{strip.dtype}')
+        panels = strip.reshape(RES, DEMO_PANELS, RES, 3).std(axis=(0, 2, 3))
+        if not np.all(np.isfinite(panels)) or min(panels) == 0:
+            raise AssertionError(f'demo {kind} panels flat: {panels}')
+        batches = run['out']['batches']
+        if [b['images'] for b in batches] != [1]:
+            raise AssertionError(f'demo {kind} batches {batches}')
+        summary[kind] = {
+            'wall_s': run['wall_s'], 'demo_s': run['out']['demo_s'],
+            'batch': batches[0],
+            'launches': {c[0] + ('_0' if i == 0 else '') if c[0] ==
+                         'evaluation' else c[0]: c[2]
+                         for i, c in enumerate(run['calls'])},
+            'ms_by_call': [(c[0], c[1]) for c in run['calls']],
+            'strip_shape': strip.shape,
+            'panel_std': panels.tolist()}
+    emit('demo', started, runs=summary)
+
+
+def dataset_gan_checkpoint(dataset: str, path: str) -> gan.GANConfig:
+    """A reference-format GAN checkpoint of the full-width generator and
+    discriminator in `dataset`'s CLI configuration, from seeds, at
+    TRAIN_ITERATION, its noise strengths and the view-direction mapper's
+    output layer drawn away from their zero start. Returns the config."""
+    args = port_config.parse_args(['--dataset', dataset])
+    port_config.override_default_args(args)
+    cfg = cli_run.make_gan_config(args, port_config.get_dataset_config(
+        dataset))
+    state = gan.init_train_state(cfg, device='cpu', seed=0)
+    draws = torch.Generator().manual_seed(13)
+    with torch.no_grad():
+        for name, p in state.gen.named_parameters():
+            if name.endswith('noise_strength') and cfg.use_stylegan_noise:
+                p.copy_(torch.randn((), generator=draws) * 0.1)
+        if cfg.use_viewdir:
+            out = state.gen.viewdir_mapper.output.weight
+            out.copy_(torch.randn(out.shape, generator=draws))
+    state.gen_ema.load_state_dict(state.gen.state_dict())
+    state.iteration = TRAIN_ITERATION
+    checkpoint.save(move_surface_into_box(checkpoint.gan_checkpoint(state)),
+                    path)
+    return cfg
+
+
+def cub_step_check(gan_path: str, lpips: LPIPS) -> dict:
+    """One inversion step in cub's geometry (box 2.0, black background,
+    flipped orthographic camera, no z0; the float32 generator with
+    StyleGAN noise, as the CLI inverts) through B1, B2 and B3 against the
+    same step through the plain versions (the planes rounded to bf16 at
+    the same boundary), with the same injected per-layer noise and crops:
+    the loss within STEP_LOSS_RTOL, the gradients of z and R within
+    STEP_GRAD_RTOL; the step's ms."""
+    dev = torch.device('cuda')
+    gen = Generator(dtype=torch.float32, device=dev, seed=0,
+                    use_stylegan_noise=True,
+                    **dict(GEN_KWARGS, scene_range=2.0))
+    convert.load_reference_state_dict(gen, checkpoint.load(gan_path)[
+        'model_ema'])
+    gen.eval()
+    cfg = dataclasses.replace(INV_CFG, scene_range=2.0)
+    rng = np.random.default_rng(14)
+
+    def tensor(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    def latent():
+        z = tensor(rng.standard_normal((BATCH, GEN_KWARGS['latent_dim'])))
+        with torch.no_grad():
+            return gen.map(z) / cfg.lr_gain_z
+
+    quat = rng.standard_normal((BATCH, 4)) * 0.3 + [1.0, 0.0, 0.0, 0.0]
+    quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+    target_params = inv.InversionParams(
+        z=latent(), R=tensor(quat), s=tensor(np.full(BATCH, CUB_SCALE)),
+        t2=tensor(rng.uniform(-0.05, 0.05, (BATCH, 2))))
+    with torch.no_grad():
+        target_out = inv.render_from_params(gen, target_params, cfg)[0]
+    target, target_mask = target_out.rgb, target_out.mask
+    if float(target_mask.max()) < 0.3:
+        raise AssertionError('cub step: the target sees no surface')
+    init = inv.InversionParams(
+        z=latent(), R=target_params.R, s=target_params.s * 1.05,
+        t2=target_params.t2 + 0.02)
+    noise = gen.synthesis_network.noise_values(
+        BATCH, torch.Generator(device=dev).manual_seed(15), dev)
+    tform = augment.sample_transform(
+        torch.Generator(device=dev).manual_seed(16),
+        BATCH * cfg.num_augmentations, 1.0)
+
+    def plain(planes_cl, coords):
+        return triplane_cuda.sample_bf16_planes(
+            planes_cl, coords, triplane.sample_triplane_plain,
+            triplane.sample_triplane_grad_plain,
+            triplane.sample_triplane_grad_planes_plain)
+
+    step = inv.make_inversion_step(gen, lpips, cfg)
+    plain_step = inv.make_inversion_step(gen, lpips, cfg, sampler=plain,
+                                         warp=warp.warp_plain)
+
+    def loss_and_grads(step_fn):
+        p = init.copy(requires_grad=True)
+        m = step_fn(p, inv.make_optimizer(p, cfg), target, tform=tform,
+                    noise=noise)
+        return float(m['loss']), p.z.grad, p.R.grad
+
+    reset_counts()
+    k_loss, k_gz, k_gr = loss_and_grads(step)
+    launches = counts()
+    expect_launches('cub step', launches,
+                    **{triplane_cuda.KERNEL: 2, triplane_cuda.GRAD_KERNEL: 2,
+                       'warp_forward': 2, 'warp_backward': 1})
+    p_loss, p_gz, p_gr = loss_and_grads(plain_step)
+    loss_err = abs(k_loss - p_loss) / abs(p_loss)
+    gz_err = float((k_gz - p_gz).norm() / p_gz.norm())
+    gr_err = float((k_gr - p_gr).norm() / p_gr.norm())
+    if (loss_err > STEP_LOSS_RTOL or gz_err > STEP_GRAD_RTOL or
+            gr_err > STEP_GRAD_RTOL):
+        raise AssertionError(f'cub step with the kernels differs from the '
+                             f'plain step: loss {loss_err}, grad z '
+                             f'{gz_err}, grad R {gr_err}')
+    params = init.copy(requires_grad=True)
+    optimizer = inv.make_optimizer(params, cfg)
+    step_ms = time_cuda(lambda: step(params, optimizer, target, tform=tform,
+                                     noise=noise), 3, warmup=1)
+    del gen
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'step_ms': step_ms,
+            'loss_kernels': k_loss, 'loss_plain': p_loss,
+            'loss_rel_err': loss_err, 'grad_z_rel_err': gz_err,
+            'grad_R_rel_err': gr_err, 'loss_rtol': STEP_LOSS_RTOL,
+            'grad_rtol': STEP_GRAD_RTOL,
+            'target_mask_mean': float(target_mask.mean())}
+
+
+def carla_g_step_check(state: gan.GANTrainState, cfg: gan.GANConfig,
+                       poses: np.ndarray, focal: np.ndarray) -> dict:
+    """One G step of the carla CLI's resumed state (the rays' directions
+    through the view-direction mapper) through B1 and B4 against the same
+    step on the plain sampler, on BATCH of the fixture's cameras with
+    injected draws: the loss within STEP_LOSS_RTOL, the gradient norm and
+    the last synthesis layer's gradient within STEP_GRAD_RTOL."""
+    dev = torch.device('cuda')
+    gen_t = torch.Generator(device=dev).manual_seed(17)
+    n = 31
+    res = cfg.resolution
+    fixed = {
+        'z': torch.randn((BATCH, cfg.latent_dim), generator=gen_t,
+                         device=dev),
+        'pose': torch.from_numpy(poses[:BATCH]).to(dev),
+        'focal': torch.from_numpy(focal[:BATCH]).to(dev),
+        'aug_tform': augment.sample_transform(gen_t, BATCH, 0.0),
+        'noise': {
+            'depth': torch.rand((BATCH, res, res, cfg.depth_samples_per_ray),
+                                generator=gen_t, device=dev),
+            'pdf_u': torch.rand((BATCH * res * res,
+                                 cfg.depth_samples_per_ray),
+                                generator=gen_t, device=dev),
+            'strata': torch.rand((BATCH, n, n, n, 3), generator=gen_t,
+                                 device=dev),
+            'perturb': torch.randn((BATCH, n ** 3, 3), generator=gen_t,
+                                   device=dev)}}
+    with torch.no_grad():
+        mask = gan.generator_forward(
+            state.gen, fixed['z'], fixed['pose'], fixed['focal'], cfg,
+            gen_t, noise=fixed['noise'])[0].mask
+    if float(mask.max()) < 0.3:
+        raise AssertionError('carla G step: the render sees no surface')
+    params = list(state.gen.parameters())
+    last_layer = getattr(state.gen.synthesis_network,
+                         f'b{cfg.plane_resolution}').torgb.weight
+    last = [p is last_layer for p in params].index(True)
+
+    def loss_and_grads(sampler):
+        loss, _ = gan.generator_loss(state, fixed, cfg, sampler)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads
+             if g is not None]))
+        return float(loss.detach()), float(norm), grads[last]
+
+    reset_counts()
+    k_loss, k_norm, k_last = loss_and_grads(triplane_cuda.sample_triplane)
+    launches = counts()
+    expect_launches('carla G step', launches, **DATASET_G)
+    p_loss, p_norm, p_last = loss_and_grads(triplane.plain_sampler)
+    loss_err = abs(k_loss - p_loss) / abs(p_loss)
+    norm_err = abs(k_norm - p_norm) / p_norm
+    last_err = float((k_last - p_last).float().norm() /
+                     p_last.float().norm())
+    if (loss_err > STEP_LOSS_RTOL or norm_err > STEP_GRAD_RTOL or
+            last_err > STEP_GRAD_RTOL):
+        raise AssertionError(f'carla G step with the kernels differs from '
+                             f'the plain step: loss {loss_err}, grad norm '
+                             f'{norm_err}, last layer {last_err}')
+    return {'batch': BATCH, 'launches': launches, 'loss_kernels': k_loss,
+            'loss_plain': p_loss, 'loss_rel_err': loss_err,
+            'grad_norm_rel_err': norm_err,
+            'last_layer_grad_rel_err': last_err,
+            'loss_rtol': STEP_LOSS_RTOL, 'grad_rtol': STEP_GRAD_RTOL,
+            'mask_mean': float(mask.mean())}
+
+
+def datasets_phase(assets: dict, lpips: LPIPS) -> None:
+    """cub and carla through both CLIs at full width: each fixture (8
+    images) runs the inversion CLI (one batch of 8, 30 steps, evaluations
+    at 0 and 30; no Inception file) and the training CLI resumed from a
+    reference-format checkpoint at iteration 12,500 for one G step and one
+    D step at batch 32 (no pretraining). Launches are counted around every
+    step and evaluation: carla's evaluations run B1 (the view-direction
+    generator decodes unfused), cub's B5a. Then cub's inversion step and
+    carla's G step against the plain versions."""
+    started = time.perf_counter()
+    base = os.path.join(os.path.dirname(assets['root']), 'datasets')
+    weights_dir = os.path.join(base, 'weights')
+    os.makedirs(weights_dir)
+    for name in weights.LPIPS_FILES:  # no Inception file: FID off
+        os.symlink(os.path.join(assets['root'], 'weights', name),
+                   os.path.join(weights_dir, name))
+    calls = []
+    originals = (inv.run_inversion, pipeline.evaluate_checkpoint,
+                 gan.g_step, gan.d_step, pretrain.pretrain_sdf,
+                 loop.train_gan)
+
+    for module, name, kind, fn in zip(
+            (inv, pipeline, gan, gan, pretrain),
+            ('run_inversion', 'evaluate_checkpoint', 'g_step', 'd_step',
+             'pretrain_sdf'),
+            ('steps', 'evaluation', 'g', 'd', 'pretrain'), originals):
+        setattr(module, name, counted_calls(calls, kind, fn))
+
+    def train_gan(state, cfg, split, num_iters, **kwargs):
+        # cub's overrides set --iterations to 200,000 (as the JAX CLI's
+        # do): the loop stops two iterations after the resume.
+        return originals[5](state, cfg, split, TRAIN_ITERATION + 2,
+                            **kwargs)
+
+    loop.train_gan = train_gan
+    results = {}
+    try:
+        for dataset in ('cub', 'carla'):
+            data = os.path.join(base, f'data_{dataset}')
+            t = time.perf_counter()
+            if dataset == 'cub':
+                fixtures.write_cub(data, DATASET_IMAGES, DATASET_IMAGES,
+                                   DATASET_IMAGE_HW['cub'], seed=21)
+            else:
+                fixtures.write_carla(data, DATASET_IMAGES,
+                                     DATASET_IMAGE_HW['carla'][0], seed=22)
+            gan_path = os.path.join(base, f'gan_{dataset}.pth')
+            cfg = dataset_gan_checkpoint(dataset, gan_path)
+            assets_s = time.perf_counter() - t
+            runs = {}
+            for mode, extra in (
+                    ('inversion', ['--run_inversion', '--coord_resume_from',
+                                   assets['encoder']]),
+                    ('training', [])):
+                calls.clear()
+                reset_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = cli_run.main(['--dataset', dataset, '--resume_from',
+                                    gan_path, '--root_path', base,
+                                    '--data_path', data] + extra)
+                torch.cuda.synchronize()
+                runs[mode] = {'wall_s': time.perf_counter() - t0,
+                              'peak_gb': torch.cuda.max_memory_allocated()
+                              / 1e9, 'calls': list(calls),
+                              'total': counts(), 'out': out}
+                torch.cuda.empty_cache()
+            results[dataset] = {'cfg': cfg, 'runs': runs,
+                                'assets_s': assets_s, 'data': data}
+    finally:
+        (inv.run_inversion, pipeline.evaluate_checkpoint, gan.g_step,
+         gan.d_step, pretrain.pretrain_sdf, loop.train_gan) = originals
+
+    summary = {}
+    for dataset, res in results.items():
+        runs = res['runs']
+        want = {'steps': CLI_STEP_LAUNCHES,
+                'evaluation': DATASET_EVAL_LAUNCHES[dataset],
+                'g': DATASET_G, 'd': DATASET_D}
+        kinds = {'inversion': ['evaluation', 'steps', 'evaluation'],
+                 'training': ['g', 'd']}
+        for mode, run in runs.items():
+            got = [c[0] for c in run['calls']]
+            if got != kinds[mode]:
+                raise AssertionError(f'{dataset} {mode} calls: {got}')
+            for what, _, launched in run['calls']:
+                expect_launches(f'{dataset} {mode} {what}', launched,
+                                **want[what])
+            total = {name: sum(c[2][name] for c in run['calls'])
+                     for name in run['total']}
+            if total != run['total']:
+                raise AssertionError(f'{dataset} {mode} launches '
+                                     f'{run["total"]}, per call {total}')
+        inversion, training = runs['inversion']['out'], runs['training'][
+            'out']
+        report = inversion['report']
+        for step in (0, CLI_STEPS):
+            for key in ('ws', 'R', 's', 't2', 'psnr', 'ssim', 'lpips'):
+                arr = np.asarray(report[step][key])
+                if arr.shape[0] != DATASET_IMAGES or not np.all(
+                        np.isfinite(arr)):
+                    raise AssertionError(f'{dataset} report {step}/{key}: '
+                                         f'{arr.shape}')
+            if ('z0' in report[step]) != (dataset != 'cub'):
+                raise AssertionError(f'{dataset}: z0 in the report '
+                                     f'{"z0" in report[step]}')
+        state = training['state']
+        if state.iteration != TRAIN_ITERATION + 2 or training['pretrained']:
+            raise AssertionError(f'{dataset} training: iteration '
+                                 f'{state.iteration}, pretrained '
+                                 f'{training["pretrained"]}')
+        if (state.gen.use_stylegan_noise != (dataset == 'cub') or
+                state.gen.use_viewdir != (dataset == 'carla')):
+            raise AssertionError(f'{dataset}: the generator\'s features')
+        step_ms = {kind: [c[1] for c in runs[mode]['calls'] if c[0] == kind]
+                   for mode, kinds_ in (('inversion', ('steps',
+                                                       'evaluation')),
+                                        ('training', ('g', 'd')))
+                   for kind in kinds_}
+        summary[dataset] = {
+            'assets_s': res['assets_s'],
+            'config': {k: v for k, v in dataclasses.asdict(res['cfg']).items()
+                       if k in ('scene_range', 'white_background',
+                                'camera_flipped', 'supervise_alpha',
+                                'use_viewdir', 'use_stylegan_noise',
+                                'batch_size', 'resolution')},
+            'inversion_wall_s': runs['inversion']['wall_s'],
+            'inversion_batch': inversion['batches'][0],
+            'steps_ms_per_step': step_ms['steps'][0] / CLI_STEPS,
+            'evaluation_ms': step_ms['evaluation'],
+            'training_wall_s': runs['training']['wall_s'],
+            'g_ms': step_ms['g'], 'd_ms': step_ms['d'],
+            'peak_gb': {m: runs[m]['peak_gb'] for m in runs},
+            'launches': {m: [(c[0], c[2]) for c in runs[m]['calls']]
+                         for m in runs},
+            'report_means': {step: {k: float(np.mean(report[step][k]))
+                                    for k in ('psnr', 'ssim', 'lpips')}
+                             for step in (0, CLI_STEPS)}}
+
+    summary['cub']['step_check'] = cub_step_check(
+        os.path.join(base, 'gan_cub.pth'), lpips)
+    carla = results['carla']
+    args = port_config.parse_args(['--dataset', 'carla', '--data_path',
+                                   carla['data']])
+    train_split = loaders.load_dataset(args)[1]
+    summary['carla']['g_step_check'] = carla_g_step_check(
+        carla['runs']['training']['out']['state'], carla['cfg'],
+        np.ascontiguousarray(train_split.tform_cam2world, np.float32),
+        np.ascontiguousarray(train_split.focal_length, np.float32))
+    emit('datasets', started, images=DATASET_IMAGES,
+         image_hw=DATASET_IMAGE_HW, **summary)
+
+
 def train_normals_check(gen: Generator, evaluator) -> dict:
     """The evaluation's first batch rendered with normals and semantics
     through the kernels (B1 4, B2 2) and through the plain versions."""
@@ -2756,13 +3263,11 @@ def train_normals_check(gen: Generator, evaluator) -> dict:
         state = gen.synthesize(gen.map(z))
 
         def run(sampler):
-            return render(lambda pts, reqs: gen.sample(state, pts, reqs,
-                                                       sampler=sampler),
-                          cfg.resolution, cfg.resolution, cams[0], cams[1],
-                          cfg.scene_range, cfg.white_background,
-                          cfg.depth_samples_per_ray, center=cams[2],
-                          bbox=cams[3], compute_normals=True,
-                          compute_semantics=True)
+            return render(gen.field(state, sampler), cfg.resolution,
+                          cfg.resolution, cams[0], cams[1], cfg.scene_range,
+                          cfg.white_background, cfg.depth_samples_per_ray,
+                          center=cams[2], bbox=cams[3],
+                          compute_normals=True, compute_semantics=True)
 
         reset_counts()
         k_out = run(triplane_cuda.sample_triplane)
@@ -2844,6 +3349,10 @@ def main() -> None:
         cli_phase(assets)
         torch.cuda.empty_cache()
         train_cli_phase(assets, rows)
+        torch.cuda.empty_cache()
+        demo_phase(assets)
+        torch.cuda.empty_cache()
+        datasets_phase(assets, lpips)
     torch.cuda.empty_cache()
     train_steps = train_phase(rows)
     torch.cuda.empty_cache()

@@ -25,8 +25,14 @@ evaluations and steps (CUDA events on the card), PnP's time on the thread
 that ran it (its wait for the copies apart) and this thread's wait for
 its result.
 
-The demo export (--inv_export_demo_sample, --inv_manual_input_path) is
-not ported yet; `cli/run.py` refuses it.
+The demo (--inv_export_demo_sample, and --inv_manual_input_path, which
+inverts a user's image at batch 1): the evaluation indices are shuffled
+with RandomState(1) (not for a manual image), no real statistics are
+computed and no report checkpoint is read, the first batch is inverted
+without a prefetch, its strip [input | coords | recon | normals | novel
+view at 50 degrees about y] is written to `outputs/{demo_manual|sample}_
+<dataset>_<steps>it.png` (`export_demo`) and the run stops there, with no
+report.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 
 from nerf_from_image_tpu_torch import config as config_lib
+from nerf_from_image_tpu_torch.data import image_io
 from nerf_from_image_tpu_torch.invert import optimizer as inv_opt
 from nerf_from_image_tpu_torch.invert import pipeline as pipe
 from nerf_from_image_tpu_torch.invert import pnp
@@ -231,12 +238,18 @@ def run_inversion_cli(args, gan_cfg, dataset_config, gen, train_split,
     `gen` is the generator with the EMA weights, on `device`. Returns
     {'report_dir', 'report', 'report_text', 'batches' (each batch's
     times, see the module's docstring), 'real_stats_s', 'consolidate_s'},
-    or None after --inv_train_coord_only.
+    for the demo {'report_dir', 'batches', 'demo_path', 'demo_s'}, or
+    None after --inv_train_coord_only.
     """
     use_testset = args.inv_use_testset
     lr_gain_z = args.inv_gain_z
-    # The reference's batch_size // 4 per GPU (run.py:1757), on one card.
-    batch_size = max(args.batch_size // 4, 1)
+    demo = bool(args.inv_export_demo_sample)
+    if args.inv_manual_input_path:
+        batch_size = 1
+    else:
+        # The reference's batch_size // 4 per GPU (run.py:1757), on one
+        # card.
+        batch_size = max(args.batch_size // 4, 1)
 
     cfg_string = config_string(args)
     print('Config string:', cfg_string)
@@ -272,6 +285,10 @@ def run_inversion_cli(args, gan_cfg, dataset_config, gen, train_split,
     split = test_split if use_testset else train_eval_split
     image_indices = split.eval_indices
     image_indices_perm = split.eval_indices_perm
+    if demo and not args.inv_manual_input_path:
+        shuffle = np.random.RandomState(1).permutation(len(image_indices))
+        image_indices = image_indices[shuffle]
+        image_indices_perm = image_indices_perm[shuffle]
     n_images = len(image_indices)
 
     if args.inv_encoder_only:
@@ -307,10 +324,11 @@ def run_inversion_cli(args, gan_cfg, dataset_config, gen, train_split,
     # Real-data Inception stats for fid_front/fid_random (run.py:385-413).
     t0 = time.perf_counter()
     cache_dir = os.path.join(args.root_path, 'fid_stats')
-    train_eval_split.fid_stats = pipe.compute_real_fid_stats(
-        train_eval_split.images, inception, batch_size,
-        os.path.join(cache_dir, f'fid_stats_{args.dataset}_train.npz'))
-    if use_testset and test_split is not None:
+    if not demo:
+        train_eval_split.fid_stats = pipe.compute_real_fid_stats(
+            train_eval_split.images, inception, batch_size,
+            os.path.join(cache_dir, f'fid_stats_{args.dataset}_train.npz'))
+    if use_testset and test_split is not None and not demo:
         test_split.fid_stats = pipe.compute_real_fid_stats(
             test_split.images, inception, batch_size,
             os.path.join(cache_dir, f'fid_stats_{args.dataset}_test.npz'))
@@ -320,7 +338,10 @@ def run_inversion_cli(args, gan_cfg, dataset_config, gen, train_split,
     # The crops' draws; its state is the report checkpoint's key.
     crops_rng = torch.Generator(device=device).manual_seed(4321)
     report_ckpt_path = os.path.join(report_dir_eff, 'report_checkpoint.npz')
-    idx, saved_key = pipe.load_report_checkpoint(report_ckpt_path, report)
+    idx, saved_key = 0, None
+    if not demo:
+        idx, saved_key = pipe.load_report_checkpoint(report_ckpt_path,
+                                                     report)
     if saved_key is not None:
         crops_rng.set_state(torch.from_numpy(np.asarray(saved_key)))
     if idx:
@@ -340,7 +361,7 @@ def run_inversion_cli(args, gan_cfg, dataset_config, gen, train_split,
             sel = np.concatenate([sel, sel[-1:].repeat(pad)])
             sel_perm = np.concatenate([sel_perm, sel_perm[-1:].repeat(pad)])
         tsel = select_inversion_targets(
-            args.dataset, dataset_config, use_testset, False, train_split,
+            args.dataset, dataset_config, use_testset, demo, train_split,
             train_eval_split, split, sel, sel_perm)
         out = {k: tensor(v) for k, v in tsel.items() if k != 'perm_cameras'}
         out['perm_cameras'] = tuple(tensor(a) for a in tsel['perm_cameras'])
@@ -368,7 +389,7 @@ def run_inversion_cli(args, gan_cfg, dataset_config, gen, train_split,
                 tw = time.perf_counter()
                 pnp_out, copy_s, pnp_s = future.result()
                 wait_s, serial = time.perf_counter() - tw, False
-            _, _, cam2world, focal, errors = pnp_out
+            coords_np, mask_np, cam2world, focal, errors = pnp_out
             params = pipe.init_inversion_params(
                 pipe.initial_latent(enc_out, z_avg, float(lr_gain_z)),
                 cam2world, focal, dataset_config['camera_flipped'])
@@ -376,7 +397,7 @@ def run_inversion_cli(args, gan_cfg, dataset_config, gen, train_split,
             # The next batch's encoder forward and host copies go on the
             # stream before this batch's work; its PnP starts on the
             # worker as soon as they are done.
-            if idx + valid < n_images:
+            if idx + valid < n_images and not demo:
                 ntsel, _ = targets_at(idx + valid)
                 with _Timer(device) as timer:
                     next_out = pipe.bootstrap_dispatch(encoder,
@@ -423,6 +444,16 @@ def run_inversion_cli(args, gan_cfg, dataset_config, gen, train_split,
                   f'({stats["wall_s"] / valid:.2f} s/img; PnP '
                   f'{pnp_s:.2f} s, {wait})', flush=True)
 
+            if demo:
+                t0 = time.perf_counter()
+                demo_path = export_demo(
+                    args, gen, inv_cfg, params, target_img, coords_np,
+                    mask_np, dataset_config, niter)
+                writer.close()
+                return {'report_dir': report_dir_eff, 'batches': batches,
+                        'demo_path': demo_path,
+                        'demo_s': time.perf_counter() - t0}
+
             if idx % REPORT_CHECKPOINT_EVERY == 0:
                 pipe.save_report_checkpoint(report_ckpt_path, report, idx,
                                             crops_rng.get_state())
@@ -455,3 +486,52 @@ def _log_first_batch(writer: SummaryWriter,
             gkey = f'grad_norm_{pname}'
             if gkey in sm:
                 writer.add_scalar(f'monitor_b0/{gkey}', sm[gkey][it], it)
+
+
+NOVEL_VIEW_DEGREES = 50.0
+
+
+@torch.no_grad()
+def export_demo(args, gen, inv_cfg, params, target_img: torch.Tensor,
+                coords: np.ndarray, mask: np.ndarray, dataset_config: dict,
+                it: int) -> str:
+    """Writes the demo strip [input | coords | recon | normals | novel
+    view] (reference run.py:2058-2159), one row of panels an image, to
+    `outputs/{demo_manual|sample}_<dataset>_<it>it.png` under the working
+    directory, and returns its path. The renders take the generator's
+    'const' noise; the normals come with the reconstruction's render
+    (B1 and B2 on the card), the novel view is the recovered camera
+    turned 50 degrees about the world's y axis (B1)."""
+    out, cam, _ = inv_opt.render_from_params(
+        gen, params, inv_cfg, compute_normals=args.use_sdf)
+    strips = [target_img[..., :3].float().cpu().numpy()]
+    if coords is not None:
+        m = mask[..., None]
+        coords_img = np.clip(coords * m / dataset_config['scene_range'],
+                             -1, 1)
+        if dataset_config['white_background']:
+            coords_img = coords_img + (1 - m)
+        strips.append(coords_img)
+    strips.append(out.rgb.clamp(-1, 1).float().cpu().numpy())
+    if out.normals is not None:
+        strips.append(out.normals.clamp(-1, 1).float().cpu().numpy())
+
+    angle = np.deg2rad(NOVEL_VIEW_DEGREES)
+    rot = torch.tensor([[np.cos(angle), 0, np.sin(angle), 0],
+                        [0, 1, 0, 0],
+                        [-np.sin(angle), 0, np.cos(angle), 0],
+                        [0, 0, 0, 1]], dtype=torch.float32,
+                       device=cam.device)
+    out_novel, _, _ = inv_opt.render_from_params(
+        gen, params, inv_cfg, override_cam=rot[None] @ cam)
+    strips.append(out_novel.rgb.clamp(-1, 1).float().cpu().numpy())
+    strip = np.concatenate(strips, axis=2) / 2 + 0.5
+
+    os.makedirs('outputs', exist_ok=True)
+    name = 'demo_manual' if args.inv_manual_input_path else 'sample'
+    out_path = os.path.join('outputs', f'{name}_{args.dataset}_{it}it.png')
+    img8 = (np.clip(strip.reshape(-1, strip.shape[2], 3), 0, 1) *
+            255).astype(np.uint8)
+    image_io.write_png(out_path, img8)
+    print('Saved demo output to', out_path)
+    return out_path

@@ -28,15 +28,22 @@ whatever --compute_dtype says, as the JAX CLI does. On the card the
 kernels read the planes rounded to bfloat16 at every dtype, as the JAX
 package's Pallas path does (`ops/triplane_cuda.sample_bf16_planes`).
 
+The demo: --inv_export_demo_sample inverts one batch of the evaluation
+set (shuffled) and writes its strip [input | coords | recon | normals |
+novel view] to `outputs/sample_<dataset>_<steps>it.png`;
+--inv_manual_input_path (which implies it) inverts the user's own image
+(a path or a URL; its mask from --inv_manual_mask_path, detectron2 where
+installed, the alpha channel, GrabCut or the full frame, `cli/demo.py`)
+at batch 1 and writes `outputs/demo_manual_<dataset>_<steps>it.png`.
+Every dataset's generator runs: StyleGAN noise (cub, imagenet_elephant),
+orthographic cameras (cub) and the view-direction mapper (carla).
+
 It runs on the card (`main(argv, device='cpu')` on the CPU, as the tests
 call it). Not ported yet, and refused with NotImplementedError before any
-work, each naming its item of ROADMAP queue A: the demo
-(--inv_export_demo_sample, --inv_manual_input_path), more than one device
-and --profile_trace_at, the other datasets' generator features
-(StyleGAN noise, orthographic cameras, view directions) and GAN
-training's flag-only modes (encoder or class conditioning, dual
-discriminators, path-length regularization, attention_values 0,
---perturb_poses).
+work, each naming its item of ROADMAP queue A: more than one device and
+--profile_trace_at, and GAN training's flag-only modes (encoder or class
+conditioning, dual discriminators, path-length regularization,
+attention_values 0, --perturb_poses).
 """
 
 from __future__ import annotations
@@ -59,13 +66,12 @@ from nerf_from_image_tpu_torch.utils import weights as weights_lib
 from nerf_from_image_tpu_torch.utils.logging import SummaryWriter
 
 
-FEATURES = "the other datasets' generator features"
 FLAG_MODES = "GAN training's flag-only modes"
 # A run's own latest checkpoint resumes it only from this iteration on.
 AUTO_RESUME_MIN_ITERATION = 12500
 
 
-def check_ported(args, dataset_config: dict) -> None:
+def check_ported(args) -> None:
     """Raises NotImplementedError, naming the ROADMAP item, for every
     branch and feature a later slice ports (`args` after the dataset's
     overrides)."""
@@ -74,9 +80,6 @@ def check_ported(args, dataset_config: dict) -> None:
                                   f'queue A: {item})')
 
     config_lib.check_single_device(args)
-    if args.inv_export_demo_sample or args.inv_manual_input_path:
-        refuse('the demo (--inv_export_demo_sample, '
-               '--inv_manual_input_path)', 'the demo')
     if not args.run_inversion and args.profile_trace_at > 0:
         refuse('--profile_trace_at (utils/profiling)', 'several cards')
     if args.perturb_poses > 0:
@@ -90,12 +93,6 @@ def check_ported(args, dataset_config: dict) -> None:
         refuse('path-length regularization', FLAG_MODES)
     if args.attention_values <= 0:
         refuse('attention_values 0', FLAG_MODES)
-    if args.use_viewdir:
-        refuse('view-direction conditioning (carla)', FEATURES)
-    if not args.disable_stylegan_noise:
-        refuse('StyleGAN noise injection', FEATURES)
-    if dataset_config['camera_projection_model'] == 'ortho':
-        refuse('orthographic cameras (cub)', FEATURES)
 
 
 def make_gan_config(args, dataset_config: dict) -> gan_lib.GANConfig:
@@ -116,7 +113,9 @@ def make_gan_config(args, dataset_config: dict) -> gan_lib.GANConfig:
         plane_resolution=args.plane_resolution,
         path_length_regularization=args.path_length_regularization,
         dual_discriminator=args.dual_discriminator,
-        use_encoder=args.use_encoder, use_class=args.use_class)
+        use_encoder=args.use_encoder, use_class=args.use_class,
+        use_viewdir=args.use_viewdir,
+        use_stylegan_noise=not args.disable_stylegan_noise)
 
 
 def main(argv=None, device: DeviceLike = None):
@@ -136,7 +135,7 @@ def main(argv=None, device: DeviceLike = None):
     # idempotent); here they let an unported branch raise before any work.
     experiment_name = config_lib.suggest_experiment_name(args)
     config_lib.override_default_args(args)
-    check_ported(args, config_lib.get_dataset_config(args.dataset))
+    check_ported(args)
     device = resolve_device(device)
     if device.type == 'cuda':
         # float32 stays float32 (the inversion's generator, the encoder,
@@ -148,9 +147,17 @@ def main(argv=None, device: DeviceLike = None):
     print('Device:', torch.cuda.get_device_name(device)
           if device.type == 'cuda' else device)
 
+    manual_image = None
+    if args.inv_manual_input_path:
+        from nerf_from_image_tpu_torch.cli.demo import load_manual_image
+        manual_image = load_manual_image(
+            args.inv_manual_input_path,
+            config_lib.get_coco_mapping()[args.dataset],
+            mask_path=args.inv_manual_mask_path)
+
     print('Loading data...')
     dataset_config, train_split, train_eval_split, test_split = \
-        loaders.load_dataset(args)
+        loaders.load_dataset(args, manual_image)
 
     cfg = make_gan_config(args, dataset_config)
     if not args.run_inversion:

@@ -1,10 +1,12 @@
 """Ray generation, near/far planes and stratified depths (PyTorch port of
 `nerf_from_image_tpu/core/rays.py`).
 
-The port has the perspective camera, with an optional principal point
-("center") and normalized bbox crop. Depths are evenly spaced, or
-jittered within their strata by uniform draws from a `torch.Generator` or
-given as a float array (the JAX package's injected draw).
+Perspective cameras, with an optional principal point ("center") and
+normalized bbox crop, and orthographic cameras (`focal_length` None; the
+scale lives in cam2world[:, 3, 3]), with the same optional crop. Depths
+are evenly spaced, or jittered within their strata by uniform draws from
+a `torch.Generator` or given as a float array (the JAX package's
+injected draw).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 Draw = Union[torch.Generator, torch.Tensor]
 
 
-def get_ray_bundle(height: int, width: int, focal_length: torch.Tensor,
+def get_ray_bundle(height: int, width: int,
+                   focal_length: Optional[torch.Tensor],
                    cam2world: torch.Tensor,
                    bbox: Optional[torch.Tensor] = None,
                    center: Optional[torch.Tensor] = None
@@ -25,10 +28,13 @@ def get_ray_bundle(height: int, width: int, focal_length: torch.Tensor,
 
     Args:
       height, width: image resolution.
-      focal_length: (B,) normalized focal length (perspective camera).
-      cam2world: (B, 4, 4) camera-to-world matrices.
+      focal_length: (B,) normalized focal length (perspective camera), or
+        None for an orthographic camera.
+      cam2world: (B, 4, 4) camera-to-world matrices; for the orthographic
+        camera the [3, 3] entry carries a global scale.
       bbox: optional (B, 2, 2) normalized crop [[x0, y0], [w, h]].
-      center: optional (B, 2) principal point in [0, 1].
+      center: optional (B, 2) principal point in [0, 1] (perspective
+        only).
 
     Returns:
       ray_origins, ray_directions: (B, H, W, 3) each. Directions are not
@@ -40,6 +46,8 @@ def get_ray_bundle(height: int, width: int, focal_length: torch.Tensor,
     jj = (torch.arange(height, dtype=dtype, device=device) / height)[:, None]
     ii = ii.expand(height, width)[None]
     jj = jj.expand(height, width)[None]
+    if focal_length is None:
+        return _ortho_rays(ii, jj, cam2world, bbox)
     if center is not None:
         ii = ii - 0.5 * (2.0 * center[:, 0, None, None] - 1.0) - 0.5
         jj = jj - 0.5 * (2.0 * center[:, 1, None, None] - 1.0) - 0.5
@@ -60,6 +68,29 @@ def get_ray_bundle(height: int, width: int, focal_length: torch.Tensor,
     # world_dir = R @ cam_dir.
     ray_directions = torch.einsum('bij,bhwj->bhwi', rot, directions)
     ray_origins = t[:, None, None, :].expand_as(ray_directions)
+    return ray_origins, ray_directions
+
+
+def _ortho_rays(ii: torch.Tensor, jj: torch.Tensor, cam2world: torch.Tensor,
+                bbox: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Parallel rays: origins on the image plane, each direction -z in the
+    camera's frame divided by the scale cam2world[:, 3, 3]."""
+    b = cam2world.shape[0]
+    ii = ((ii - 0.5) * 2.0).expand(b, -1, -1)
+    jj = ((jj - 0.5) * 2.0).expand(b, -1, -1)
+    if bbox is not None:
+        ii = bbox[:, 1:2, 0, None] * (ii / 2.0 + 0.5) + bbox[:, 0:1, 0, None]
+        jj = -(bbox[:, 1:2, 1, None] * (-jj / 2.0 + 0.5) +
+               bbox[:, 0:1, 1, None])
+    origins_local = torch.stack((ii, -jj, torch.zeros_like(ii)), dim=-1)
+    dirs_local = torch.zeros_like(origins_local)
+    dirs_local[..., 2] = -1.0
+    rot = cam2world[:, :3, :3]
+    ray_origins = (torch.einsum('bij,bhwj->bhwi', rot, origins_local) +
+                   cam2world[:, None, None, :3, 3])
+    ray_directions = (torch.einsum('bij,bhwj->bhwi', rot, dirs_local) /
+                      cam2world[:, None, None, 3, 3, None])
     return ray_origins, ray_directions
 
 
@@ -93,7 +124,8 @@ def compute_near_far_planes(ray_origins: torch.Tensor,
     far = torch.minimum(far, zmax)
 
     # Fill misses with the masked global min/max.
-    inf = torch.tensor(float('inf'), dtype=near.dtype, device=near.device)
+    # Made on the device: a host tensor would make the host wait here.
+    inf = torch.full((), float('inf'), dtype=near.dtype, device=near.device)
     near_fill = torch.where(mask, near, inf).min()
     far_fill = torch.where(mask, far, -inf).max()
     near = torch.where(mask, near, near_fill)

@@ -7,7 +7,10 @@ l1 / mse / mixed), differentiates to the latent and the camera, takes an
 Adam step and projects (R renormalized, s -> |s|, z0 clamped to +-4).
 The latent is stored divided by `lr_gain_z`, so Adam's effective rate on
 it is gain times larger. The JAX package runs the steps as one
-`lax.scan`; here they are a Python loop of eager steps.
+`lax.scan`; here they are a Python loop of eager steps. A noise-enabled
+generator (cub, imagenet_elephant) renders each step with fresh StyleGAN
+noise, drawn from the step's generator or injected per layer; an
+orthographic camera (cub) has no z0.
 
 On the card the render's triplane sampler runs the CUDA kernels B1
 (forward) and B2 (backward, with the coordinate gradients that the camera
@@ -27,6 +30,7 @@ from nerf_from_image_tpu_torch.core import augment
 from nerf_from_image_tpu_torch.core import pose as pose_lib
 from nerf_from_image_tpu_torch.models.generator import Generator, Sampler
 from nerf_from_image_tpu_torch.models.lpips import LPIPS
+from nerf_from_image_tpu_torch.models.stylegan import NoiseSource
 from nerf_from_image_tpu_torch.ops import triplane_cuda
 from nerf_from_image_tpu_torch.ops import warp as warp_lib
 from nerf_from_image_tpu_torch.render.renderer import RenderOutput, render
@@ -84,28 +88,39 @@ def render_from_params(gen: Generator, params: InversionParams,
                        sampler: Sampler = triplane_cuda.sample_triplane,
                        center: Optional[torch.Tensor] = None,
                        bbox: Optional[torch.Tensor] = None,
-                       render_rng: Optional[Dict[str, torch.Tensor]] = None
-                       ) -> Tuple[RenderOutput, torch.Tensor, torch.Tensor]:
-    """Renders the parameters' latent from their camera.
+                       render_rng: Optional[Dict[str, torch.Tensor]] = None,
+                       compute_normals: bool = False,
+                       compute_semantics: bool = False,
+                       override_cam: Optional[torch.Tensor] = None,
+                       noise: Optional[NoiseSource] = None
+                       ) -> Tuple[RenderOutput, torch.Tensor,
+                                  Optional[torch.Tensor]]:
+    """Renders the parameters' latent from their camera (perspective, or
+    orthographic when `params.z0` is None).
 
     `center` (B, 2) and `bbox` (B, 2, 2) crop the camera as in `render`;
     `render_rng` is None (deterministic depths) or the render's draws
-    {'depth', 'pdf_u'}, as the JAX package injects them.
+    {'depth', 'pdf_u'}, as the JAX package injects them;
+    `override_cam` (B, 4, 4) replaces the parameters' camera (the demo's
+    novel view); `noise` is the StyleGAN noise source of a noise-enabled
+    generator (a `torch.Generator` or per-layer values), None for its
+    deterministic 'const' noise, as the JAX package's bookend and demo
+    renders have it.
 
-    Returns (render, cam2world (B, 4, 4), focal (B,)).
+    Returns (render, cam2world (B, 4, 4), focal (B,) or None).
     """
-    if params.z0 is None:
-        raise NotImplementedError('orthographic cameras are not ported yet')
     cam, focal = make_camera(params, cfg.camera_flipped)
+    if override_cam is not None:
+        cam = override_cam
     ws = params.z * cfg.lr_gain_z
     if ws.shape[1] == 1:
         ws = ws.expand(-1, gen.num_ws, -1)
-    state = gen.synthesize(ws)
-    out = render(lambda pts, reqs: gen.sample(state, pts, reqs,
-                                              sampler=sampler),
-                 cfg.resolution, cfg.resolution, cam, focal,
-                 cfg.scene_range, cfg.white_background,
-                 cfg.depth_samples_per_ray, render_rng, center, bbox)
+    state = gen.synthesize(ws, noise=noise)
+    out = render(gen.field(state, sampler), cfg.resolution, cfg.resolution,
+                 cam, focal, cfg.scene_range, cfg.white_background,
+                 cfg.depth_samples_per_ray, render_rng, center, bbox,
+                 compute_normals=compute_normals,
+                 compute_semantics=compute_semantics)
     return out, cam, focal
 
 
@@ -115,7 +130,8 @@ def inversion_loss(gen: Generator, lpips: LPIPS, params: InversionParams,
                    tform: Optional[augment.AffineTransform] = None,
                    sampler: Sampler = triplane_cuda.sample_triplane,
                    warp: Warp = warp_lib.grid_sample_zeros,
-                   render_rng: Optional[Dict[str, torch.Tensor]] = None
+                   render_rng: Optional[Dict[str, torch.Tensor]] = None,
+                   noise: Optional[NoiseSource] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The refinement loss (reference run.py:2202-2254).
 
@@ -126,6 +142,9 @@ def inversion_loss(gen: Generator, lpips: LPIPS, params: InversionParams,
         image b is row b * num_augmentations + k), shared by prediction
         and target.
       render_rng: the render's injected draws, or None (deterministic).
+      noise: the render's StyleGAN noise values (per layer), for a
+        noise-enabled generator; None draws them from `generator` (before
+        the crops' transforms), or, without one, takes the 'const' noise.
 
     Returns (loss, monitor): the loss sums over the batch (mean LPIPS over
     images and crops, times B); monitor holds the per-image psnr, the
@@ -133,8 +152,10 @@ def inversion_loss(gen: Generator, lpips: LPIPS, params: InversionParams,
     """
     if cfg.loss_type not in LOSS_TYPES:
         raise ValueError(f'unknown loss_type {cfg.loss_type!r}')
+    if noise is None and gen.use_stylegan_noise:
+        noise = generator
     out, cam, _ = render_from_params(gen, params, cfg, sampler,
-                                     render_rng=render_rng)
+                                     render_rng=render_rng, noise=noise)
     pred = out.rgb  # (B, H, W, 3)
     target = target_img[..., :3].detach()
     b = pred.shape[0]
@@ -212,7 +233,7 @@ def make_inversion_step(gen: Generator, lpips: LPIPS, cfg: InversionConfig,
                         sampler: Sampler = triplane_cuda.sample_triplane,
                         warp: Warp = warp_lib.grid_sample_zeros):
     """Returns step(params, optimizer, target, generator=None, tform=None,
-    render_rng=None) -> metrics.
+    render_rng=None, noise=None) -> metrics.
 
     A step differentiates the loss to the parameters only (the generator's
     and LPIPS' weights are constants here), zeroes the pose gradients when
@@ -228,11 +249,12 @@ def make_inversion_step(gen: Generator, lpips: LPIPS, cfg: InversionConfig,
              target: torch.Tensor,
              generator: Optional[torch.Generator] = None,
              tform: Optional[augment.AffineTransform] = None,
-             render_rng: Optional[Dict[str, torch.Tensor]] = None
+             render_rng: Optional[Dict[str, torch.Tensor]] = None,
+             noise: Optional[NoiseSource] = None
              ) -> Dict[str, torch.Tensor]:
         loss, monitor = inversion_loss(gen, lpips, params, target, cfg,
                                        generator, tform, sampler, warp,
-                                       render_rng)
+                                       render_rng, noise)
         named = params.named()
         grads = torch.autograd.grad(loss, [t for _, t in named])
         metrics = {'loss': loss.detach(), 'psnr': monitor['psnr'].mean(),

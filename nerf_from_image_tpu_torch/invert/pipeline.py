@@ -23,7 +23,10 @@ The checkpoint renders take no gradient, so they run under
 `torch.no_grad()` on `Generator.fused_view()` of the refinement
 generator, which shares its parameters: on the card they sample and
 decode through the fused kernel (B5a), while the refinement steps keep
-the differentiable sampler (B1 forward, B2 backward).
+the differentiable sampler (B1 forward, B2 backward). A view-direction
+generator (carla) decodes its checkpoint renders unfused (B1), as the JAX
+package's fused gate has it; a noise-enabled one renders them with its
+'const' noise.
 """
 
 from __future__ import annotations
@@ -240,11 +243,10 @@ def evaluate_checkpoint(ctx: EvalContext, cfg: inv_opt.InversionConfig,
     if ws.shape[1] == 1:
         ws = ws.expand(-1, gen.num_ws, -1)
     state = gen.synthesize(ws)
-    out_r = render(lambda pts, reqs: gen.sample(state, pts, reqs),
-                   cfg.resolution, cfg.resolution, perm_cam, perm_focal,
-                   cfg.scene_range, cfg.white_background,
-                   cfg.depth_samples_per_ray, center=perm_center,
-                   bbox=perm_bbox)
+    out_r = render(gen.field(state), cfg.resolution, cfg.resolution,
+                   perm_cam, perm_focal, cfg.scene_range,
+                   cfg.white_background, cfg.depth_samples_per_ray,
+                   center=perm_center, bbox=perm_bbox)
     if target_img_random is not None:
         for k, v in _front_metrics(ctx, out_r.rgb, out_r.mask,
                                    target_img_random, False,

@@ -7,14 +7,16 @@ SDF -> density, attention-palette colour.
 
 Names follow the reference's state-dict keys (`mapping_network.backbone.*`,
 `synthesis_network.b*`, `decoder.net.{0,2}`, `texture_mapper.*`, `beta`,
-`alpha`), so a reference-format state dict loads unchanged. The slice
-ports the configuration every reference dataset trains: an SDF field
-(`--use_sdf` is always true there) with an attention palette, the SDF
-regularizers of GAN training (eikonal, total variation, entropy) and the
-distance loss of SDF pretraining, and as per-point outputs the normals
-and the palette probabilities (the GAN evaluation's images) and the world
-points (the encoder distillation's coordinate render). View directions,
-encoder, class embedding and noise injection wait for later slices.
+`alpha`, `viewdir_mapper.*`), so a reference-format state dict loads
+unchanged. The port has the configurations the reference datasets train:
+an SDF field (`--use_sdf` is always true there) with an attention
+palette, StyleGAN noise (`use_stylegan_noise`: cub, imagenet_elephant),
+the view-direction mapper (`use_viewdir`: carla), the SDF regularizers of
+GAN training (eikonal, total variation, entropy) and the distance loss of
+SDF pretraining, and as per-point outputs the normals and the palette
+probabilities (the GAN evaluation's images) and the world points (the
+encoder distillation's coordinate render). The encoder and the class
+embedding wait for a later slice.
 """
 
 from __future__ import annotations
@@ -138,6 +140,63 @@ class AttentionMapper(nn.Module):
         return wide_sigmoid_rescaled(values.reshape(-1, self.num_values, 3))
 
 
+class ViewDirectionMapper(nn.Module):
+    """Per-ray view-direction features and the output head: seven
+    equalized linears (fc0 and fc5 with a bias), four LayerNorms and a
+    zero-initialized output layer, in the reference's order."""
+
+    def __init__(self, output_size: int, num_features: int = 32,
+                 hidden_size: int = 64, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc0 = stylegan.EqualizedLinear(3, hidden_size, dtype=dtype,
+                                            generator=generator)
+        for i in range(1, 5):
+            setattr(self, f'fc{i}', stylegan.EqualizedLinear(
+                hidden_size, hidden_size, bias=False, dtype=dtype,
+                generator=generator))
+            setattr(self, f'norm{i}', nn.LayerNorm(hidden_size, eps=1e-6))
+        self.fc5 = stylegan.EqualizedLinear(hidden_size, hidden_size,
+                                            dtype=dtype, generator=generator)
+        self.fc6 = stylegan.EqualizedLinear(hidden_size, num_features,
+                                            dtype=dtype, generator=generator)
+        self.output = stylegan.EqualizedLinear(num_features, output_size,
+                                               dtype=dtype,
+                                               generator=generator)
+        with torch.no_grad():
+            self.output.weight.zero_()
+
+    def _norm(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        # flax's LayerNorm (epsilon 1e-6), in the activations' dtype.
+        norm = getattr(self, f'norm{i}')
+        return F.layer_norm(x, x.shape[-1:], norm.weight.to(x.dtype),
+                            norm.bias.to(x.dtype), norm.eps)
+
+    def embed(self, viewdir: torch.Tensor) -> torch.Tensor:
+        """Directions (..., 3) -> features (..., num_features)."""
+        scale = math.sqrt(2.0) / 2.0
+        x = F.leaky_relu(self.fc0(viewdir), 0.2)
+        for first in (1, 3):
+            shortcut = x
+            x = F.leaky_relu(self._norm(first, getattr(
+                self, f'fc{first}')(x)), 0.2)
+            x = F.leaky_relu(self._norm(first + 1, getattr(
+                self, f'fc{first + 1}')(x)), 0.2)
+            x = (x + shortcut) * scale
+        x = F.leaky_relu(self.fc5(x), 0.2)
+        return self.fc6(x)
+
+    def apply_features(self, embedding: torch.Tensor,
+                       features: torch.Tensor) -> torch.Tensor:
+        """embedding (..., 1, F) + per-sample features (..., S, F) ->
+        (..., S, output_size)."""
+        return self.output(F.leaky_relu(embedding + features, 0.2))
+
+    def forward(self, viewdir: torch.Tensor,
+                features: torch.Tensor) -> torch.Tensor:
+        return self.apply_features(self.embed(viewdir), features)
+
+
 class TriplanarDecoder(nn.Module):
     """Two-layer Softplus MLP on the sampled triplane features;
     `net.0` and `net.2` as in the reference."""
@@ -188,16 +247,28 @@ class Generator(nn.Module):
     `fused_view()` returns the generator with it on, which makes `sample`
     run the triplane sample and the decoder tail as one forward-only call
     (kernel B5a on the card); it raises when autograd would need the
-    sample's gradient.
+    sample's gradient. A view-direction generator decodes unfused even
+    then, as the JAX package's gate has it (`fuses`).
+
+    `use_stylegan_noise` is the model's noise policy (`noise_mode`):
+    'random' when a noise source is given, 'const' when none is, 'none'
+    for a model built without noise. `use_viewdir` builds the
+    view-direction mapper; the decoder then emits 32 features, which the
+    mapper turns into the palette logits with the embedding of each ray's
+    direction (`sample(..., viewdirs=)`, which `field` passes on).
     """
 
     def __init__(self, latent_dim: int, scene_range: float,
                  attention_values: int = 10,
                  img_resolution: int = 256, channel_base: int = 32768,
                  channel_max: int = 512, dtype: torch.dtype = torch.float32,
-                 device: DeviceLike = None, seed: int = 0):
+                 device: DeviceLike = None, seed: int = 0,
+                 use_viewdir: bool = False,
+                 use_stylegan_noise: bool = False):
         super().__init__()
         self.fuse_decode = False
+        self.use_viewdir = use_viewdir
+        self.use_stylegan_noise = use_stylegan_noise
         device = resolve_device(device)
         if attention_values < 1:
             raise NotImplementedError('the port needs attention_values >= 1')
@@ -215,8 +286,13 @@ class Generator(nn.Module):
             w_dim, img_resolution, 3 * PLANE_CHANNELS,
             channel_base=channel_base, channel_max=channel_max, dtype=dtype,
             generator=gen)
-        self.decoder = TriplanarDecoder(PLANE_CHANNELS, attention_values,
-                                        dtype=dtype, generator=gen)
+        self.decoder = TriplanarDecoder(
+            PLANE_CHANNELS, PLANE_CHANNELS if use_viewdir else
+            attention_values, dtype=dtype, generator=gen)
+        if use_viewdir:
+            self.viewdir_mapper = ViewDirectionMapper(
+                attention_values, PLANE_CHANNELS, dtype=dtype,
+                generator=gen)
         self.beta = nn.Parameter(torch.tensor([0.1]))
         self.alpha = nn.Parameter(torch.tensor([1.0]))
         self.texture_mapper = AttentionMapper(attention_values, w_dim,
@@ -234,6 +310,28 @@ class Generator(nn.Module):
         z = torch.randn((n_samples, self.latent_dim), generator=generator,
                         device=device)
         return self.map(z).float().mean(dim=0, keepdim=True)
+
+    @property
+    def fuses(self) -> bool:
+        """Whether `sample` runs the fused call: `fuse_decode` on a
+        generator without view directions."""
+        return self.fuse_decode and not self.use_viewdir
+
+    def noise_mode(self, noise: Optional[stylegan.NoiseSource]) -> str:
+        """The noise policy: 'none' for a model built without noise, else
+        'random' with a noise source and 'const' without one."""
+        if not self.use_stylegan_noise:
+            return 'none'
+        return 'random' if noise is not None else 'const'
+
+    def synthesize_planes(self, ws: torch.Tensor,
+                          noise: Optional[stylegan.NoiseSource] = None
+                          ) -> torch.Tensor:
+        """The synthesis ws (B, 14, 512) -> planes (B, 3, 32, R, R), with
+        the noise of `noise_mode(noise)`."""
+        planes = self.synthesis_network(ws, self.noise_mode(noise), noise)
+        return planes.reshape(ws.shape[0], 3, PLANE_CHANNELS,
+                              planes.shape[-2], planes.shape[-1])
 
     def fused_view(self) -> 'Generator':
         """A shallow copy with `fuse_decode` on: the same parameter and
@@ -253,13 +351,16 @@ class Generator(nn.Module):
                 (second.weight * second.gain).t(),
                 second.bias * second.lr_multiplier)
 
-    def synthesize(self, ws: torch.Tensor) -> GeneratorState:
+    def synthesize(self, ws: torch.Tensor,
+                   noise: Optional[stylegan.NoiseSource] = None
+                   ) -> GeneratorState:
+        """ws (B, 15, 512) -> the state `sample` reads. `noise`: a
+        `torch.Generator` or per-layer values for the 'random' mode (see
+        `noise_mode`)."""
         att = self.texture_mapper(ws[:, 14])
-        planes = self.synthesis_network(ws[:, :14])
-        planes = planes.reshape(ws.shape[0], 3, PLANE_CHANNELS,
-                                planes.shape[-2], planes.shape[-1])
+        planes = self.synthesize_planes(ws[:, :14], noise)
         fused_tail = None
-        if self.fuse_decode:
+        if self.fuses:
             w0, b0, w1, b1 = self.fused_decode_weights()
             fused_tail = tuple(
                 t.to(dtype).contiguous() for t, dtype in (
@@ -278,7 +379,8 @@ class Generator(nn.Module):
 
     def sample(self, state: GeneratorState, x_in: torch.Tensor,
                requests: Sequence[str] = ('sigma', 'rgb'),
-               sampler: Sampler = triplane_cuda.sample_triplane
+               sampler: Sampler = triplane_cuda.sample_triplane,
+               viewdirs: Optional[torch.Tensor] = None
                ) -> Dict[str, torch.Tensor]:
         """Evaluates the field at world points.
 
@@ -294,6 +396,9 @@ class Generator(nn.Module):
             `triplane_cuda.sample_triplane_fused` (B5a on the card)
             samples and decodes on bf16 planes, as the JAX package's
             fused kernel reads them, and another sampler raises.
+          viewdirs: (B, rays..., 3) each ray's normalized direction, x_in
+            being (B, rays..., S, 3); a view-direction generator needs
+            them for rgb and semantics, and any other ignores them.
 
         Returns values flattened over the non-batch dims: sigma (B, N),
         rgb (B, N, 3), normals (B, N, 3) (the normalized gradient of the
@@ -318,7 +423,7 @@ class Generator(nn.Module):
                                                  device=x.device)}
         if 'coords' in requests:
             outputs['coords'] = x_in.reshape(bs, -1, 3)
-        if self.fuse_decode:
+        if self.fuses:
             if not set(requests) <= {'sigma', 'rgb'}:
                 raise ValueError(f'fuse_decode decodes sigma and rgb only, '
                                  f'not {set(requests) - {"sigma", "rgb"}}')
@@ -352,12 +457,39 @@ class Generator(nn.Module):
             outputs['sigma'] = self.sdf_to_sigma(dec['density_or_distance'],
                                                  oob)
         if 'rgb' in requests or 'semantics' in requests:
-            probs = torch.softmax(dec['features'], dim=-1)
+            features = dec['features']
+            if self.use_viewdir:
+                features = self._apply_viewdirs(features, viewdirs, x_in)
+            probs = torch.softmax(features, dim=-1)
             if 'semantics' in requests:
                 outputs['semantics'] = probs
             if 'rgb' in requests:
                 outputs['rgb'] = palette_rgb(probs, state.attention_values)
         return outputs
+
+    def field(self, state: GeneratorState,
+              sampler: Sampler = triplane_cuda.sample_triplane):
+        """The `sample_fn` of `render` for `state`."""
+        def sample_fn(pts, reqs, viewdirs):
+            return self.sample(state, pts, reqs, sampler=sampler,
+                               viewdirs=viewdirs)
+        return sample_fn
+
+    def _apply_viewdirs(self, features: torch.Tensor,
+                        viewdirs: Optional[torch.Tensor],
+                        x_in: torch.Tensor) -> torch.Tensor:
+        """The decoder's 32 features (B, N, 32) through the mapper with
+        each ray's embedding -> the palette logits (B, N, K); the points
+        x_in are (B, rays..., S, 3), S samples a ray."""
+        if viewdirs is None:
+            raise ValueError('a view-direction generator needs the rays\' '
+                             'directions for rgb and semantics')
+        bs, s = x_in.shape[0], x_in.shape[-2]
+        emb = self.viewdir_mapper.embed(
+            viewdirs.reshape(bs, -1, 1, 3).to(self.dtype))
+        feat = features.reshape(bs, -1, s, features.shape[-1])
+        out = self.viewdir_mapper.apply_features(emb, feat)
+        return out.reshape(bs, -1, out.shape[-1])
 
     def sdf_losses(self, planes_cl: torch.Tensor,
                    rng: Union[torch.Generator, Dict[str, torch.Tensor]],

@@ -7,21 +7,29 @@ reference-format state dict loads with `load_state_dict` as it is,
 including the `resample_filter` and `noise_const` buffers. Parameters stay
 float32; activations run in the module's `dtype` (bfloat16 on the card).
 Each module draws its initial values from the `torch.Generator` it is
-given. The slice runs without noise injection (the generator's default),
-so `noise_strength` and `noise_const` are held but not read. The
+given. Each synthesis conv adds StyleGAN noise times its `noise_strength`
+after demodulation, before the bias, in one of three modes: 'none',
+'const' (its `noise_const` buffer) or 'random' (fresh per-layer draws
+from a `torch.Generator`, or injected per-layer values). The
 convolutions are PyTorch's (cuDNN on the card), as JAX leaves them to XLA.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from nerf_from_image_tpu_torch.ops import resample
+
+NOISE_MODES = ('none', 'const', 'random')
+# A noise source of the 'random' mode: a generator to draw from, or one
+# value per noise-bearing conv layer, outermost first, each broadcastable
+# to (B, 1, res, res) (the JAX package's injected form).
+NoiseSource = Union[torch.Generator, Sequence[torch.Tensor]]
 
 
 def conv_resampled2d(x: torch.Tensor, w: torch.Tensor, up: bool = False,
@@ -164,7 +172,7 @@ class MappingNetwork(nn.Module):
 
 
 class SynthesisLayer(nn.Module):
-    """Modulated conv + bias + lrelu."""
+    """Modulated conv + noise + bias + lrelu."""
 
     def __init__(self, in_channels: int, out_channels: int, w_dim: int,
                  resolution: int, kernel_size: int = 3, up: bool = False,
@@ -181,16 +189,27 @@ class SynthesisLayer(nn.Module):
             (out_channels, in_channels, kernel_size, kernel_size),
             generator=generator))
         self.bias = nn.Parameter(torch.zeros(out_channels))
-        # Held so reference state dicts load; noise injection is not ported.
+        self.resolution = resolution
         self.noise_strength = nn.Parameter(torch.zeros(()))
         self.register_buffer('noise_const', torch.randn(
             (resolution, resolution), generator=generator))
         self.register_buffer('resample_filter', resample.bilinear_filter())
 
-    def forward(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, w: torch.Tensor,
+                noise_mode: str = 'none',
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`noise`: the 'random' mode's values, broadcastable to (B, 1,
+        res, res); 'const' reads `noise_const`, 'none' adds nothing."""
         styles = self.affine(w)
         x = conv_modulated2d(x, self.weight.to(self.dtype), styles,
                              up=self.up, padding=self.padding)
+        if noise_mode == 'random':
+            x = x + (noise.float() * self.noise_strength).to(x.dtype)
+        elif noise_mode == 'const':
+            x = x + (self.noise_const * self.noise_strength).to(x.dtype)
+        elif noise_mode != 'none':
+            raise ValueError(f'noise_mode must be one of {NOISE_MODES}, '
+                             f'got {noise_mode!r}')
         x = x + self.bias.reshape(1, -1, 1, 1).to(self.dtype)
         if self.activate:
             x = F.leaky_relu(x * math.sqrt(2.0), 0.2)
@@ -248,14 +267,18 @@ class SynthesisBlock(nn.Module):
         return 1 if self.in_channels == 0 else 2
 
     def forward(self, x: Optional[torch.Tensor], img: Optional[torch.Tensor],
-                ws: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """ws: (B, num_conv + 1, w_dim), the last one for toRGB."""
+                ws: torch.Tensor, noise_mode: str = 'none',
+                noise: Sequence[Optional[torch.Tensor]] = (None, None)
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """ws: (B, num_conv + 1, w_dim), the last one for toRGB; `noise`:
+        the 'random' mode's values of the block's convs, in order."""
         if self.in_channels == 0:
             x = self.const.to(self.dtype)[None].expand(
                 (ws.shape[0],) + self.const.shape)
         else:
-            x = self.conv0(x, ws[:, 0])
-        x = self.conv1(x, ws[:, self.num_conv - 1])
+            x = self.conv0(x, ws[:, 0], noise_mode, noise[0])
+        x = self.conv1(x, ws[:, self.num_conv - 1], noise_mode,
+                       noise[self.num_conv - 1])
         y = self.torgb(x, ws[:, self.num_conv])
         img = y if img is None else resample.upsample2d(img) + y
         return x, img
@@ -286,21 +309,51 @@ class SynthesisNetwork(nn.Module):
                 in_ch, channels[res], w_dim, res, img_channels, dtype=dtype,
                 generator=generator))
 
-    def forward(self, ws: torch.Tensor) -> torch.Tensor:
+    @property
+    def num_noise_layers(self) -> int:
+        """The noise-bearing convs: one in b4, two in every other block."""
+        return 2 * len(self.resolutions) - 1
+
+    def noise_values(self, batch: int, source: NoiseSource,
+                     device: torch.device) -> List[torch.Tensor]:
+        """The 'random' mode's per-layer values, outermost layer first: the
+        given sequence, or fresh float32 (batch, 1, res, res) normal draws
+        from the generator, one layer after another."""
+        if not isinstance(source, torch.Generator):
+            values = list(source)
+            if len(values) != self.num_noise_layers:
+                raise ValueError(f'{len(values)} noise values for '
+                                 f'{self.num_noise_layers} layers')
+            return values
+        return [torch.randn((batch, 1, res, res), generator=source,
+                            device=device)
+                for res in self.resolutions
+                for _ in range(1 if res == 4 else 2)]
+
+    def forward(self, ws: torch.Tensor, noise_mode: str = 'none',
+                noise: Optional[NoiseSource] = None) -> torch.Tensor:
         """ws (B, n, w_dim) -> the feature image. A layer whose w lies past
         the n given reads the last one, as the JAX package's clamped
         indexing does: the generator passes 14, so at 512^2 every layer of
-        the last block reads the 14th."""
+        the last block reads the 14th. `noise` is the 'random' mode's
+        source (see `noise_values`); the other modes take none."""
+        values = None
+        if noise_mode == 'random':
+            if noise is None:
+                raise ValueError("noise_mode 'random' needs a noise source")
+            values = self.noise_values(ws.shape[0], noise, ws.device)
         x = img = None
         w_idx = 0
         for res in self.resolutions:
             block = getattr(self, f'b{res}')
+            block_noise = ((None, None) if values is None else
+                           [values.pop(0) for _ in range(block.num_conv)])
             block_ws = ws[:, w_idx:w_idx + block.num_conv + 1]
             short = block.num_conv + 1 - block_ws.shape[1]
             if short > 0:
                 block_ws = torch.cat(
                     (block_ws, ws[:, -1:].expand(-1, short, -1)), dim=1)
-            x, img = block(x, img, block_ws)
+            x, img = block(x, img, block_ws, noise_mode, block_noise)
             w_idx += block.num_conv
         return img
 

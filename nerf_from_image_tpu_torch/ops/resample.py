@@ -9,15 +9,33 @@ batch. Filter: f = [1, 3, 3, 1] / 8 per axis, 2-D kernel outer(f, f).
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 import torch.nn.functional as F
 
+# The scaled filters the resampling ops apply, one per (gain, dtype,
+# device): built once, so that a forward never copies a filter from the
+# host (a copy that makes the host wait for the card).
+_FILTERS: Dict[Tuple[float, torch.dtype, torch.device], torch.Tensor] = {}
+
 
 def bilinear_filter(dtype=torch.float32, device=None) -> torch.Tensor:
-    """The (4, 4) filter outer(f, f), summing to 1."""
+    """The (4, 4) filter outer(f, f), summing to 1 (a new tensor)."""
     f = torch.tensor([1.0, 3.0, 3.0, 1.0], dtype=dtype, device=device)
     k = f[:, None] * f[None, :]
     return k / k.sum()
+
+
+def _filter(gain: float, device: torch.device) -> torch.Tensor:
+    """bilinear_filter() * gain on `device`, float32, cached. The values
+    are exact in float32, so the cache changes no result."""
+    key = (gain, torch.float32, device)
+    k = _FILTERS.get(key)
+    if k is None:
+        k = (bilinear_filter() * gain).to(device)
+        _FILTERS[key] = k
+    return k
 
 
 def _depthwise(im: torch.Tensor, kernel: torch.Tensor, transpose: bool,
@@ -36,19 +54,19 @@ def filter2d(im: torch.Tensor, gain: float = 1.0,
     """4x4 bilinear filter, stride 1: H -> H - 1, or H -> H + 1 with
     `transpose` (the filter is symmetric, so its transpose is the same
     correlation with wider zero padding)."""
-    kernel = bilinear_filter(device=im.device) * gain
-    return _depthwise(im, kernel, False, padding=2 if transpose else 1)
+    return _depthwise(im, _filter(gain, im.device), False,
+                      padding=2 if transpose else 1)
 
 
 def upsample2d(im: torch.Tensor) -> torch.Tensor:
     """2x bilinear upsampling (conv_transpose k4 s2 p1 with kernel * 4):
     (..., H, W) -> (..., 2H, 2W)."""
-    kernel = bilinear_filter(device=im.device) * 4.0
-    return _depthwise(im, kernel, True, stride=2, padding=1)
+    return _depthwise(im, _filter(4.0, im.device), True, stride=2,
+                      padding=1)
 
 
 def downsample2d(im: torch.Tensor) -> torch.Tensor:
     """2x bilinear downsampling (conv k4 s2 p1):
     (..., H, W) -> (..., H / 2, W / 2)."""
-    return _depthwise(im, bilinear_filter(device=im.device), False,
-                      stride=2, padding=1)
+    return _depthwise(im, _filter(1.0, im.device), False, stride=2,
+                      padding=1)

@@ -1,10 +1,14 @@
 """Volume renderer: rays -> coarse pass -> PDF resampling -> fine pass ->
 composite (PyTorch port of `nerf_from_image_tpu/render/renderer.py`).
 
-The field is `sample_fn(points, requests) -> dict`, as in the JAX package.
-The port renders sigma and rgb with a perspective camera (with an optional
-principal point and bbox crop), deterministically or with jittered depths
-and random PDF draws, and on request the normals (`compute_normals`, the
+The field is `sample_fn(points, requests, directions) -> dict`: the JAX
+package's `sample_fn(points, requests)`, also given the rays' normalized
+directions (B, H, W, 3), the same tensor in both passes, which a
+view-direction generator reads and any other field ignores. The port renders
+sigma and rgb with a perspective camera (with an optional principal point
+and bbox crop) or an orthographic one (`focal_length` None, the scale in
+cam2world[:, 3, 3]), deterministically or with jittered depths and random
+PDF draws, and on request the normals (`compute_normals`, the
 GAN evaluation's images), the K-channel palette probabilities
 (`compute_semantics`) or the world points in the semantics slot
 (`compute_coords`, the encoder distillation's target). The render
@@ -25,7 +29,8 @@ from nerf_from_image_tpu_torch.core import compositing
 from nerf_from_image_tpu_torch.core import rays as rays_lib
 from nerf_from_image_tpu_torch.core import sampling
 
-SampleFn = Callable[[torch.Tensor, Sequence[str]], Dict[str, torch.Tensor]]
+SampleFn = Callable[[torch.Tensor, Sequence[str], torch.Tensor],
+                    Dict[str, torch.Tensor]]
 
 
 @dataclass
@@ -50,7 +55,7 @@ def normalize(x: torch.Tensor, dim: int = -1,
 
 
 def render(sample_fn: SampleFn, height: int, width: int,
-           cam2world: torch.Tensor, focal_length: torch.Tensor,
+           cam2world: torch.Tensor, focal_length: Optional[torch.Tensor],
            scene_range: float, white_background: bool,
            depth_samples_per_ray: int,
            rng: Optional[Union[torch.Generator,
@@ -63,7 +68,8 @@ def render(sample_fn: SampleFn, height: int, width: int,
     """Renders a batch of views.
 
     Args:
-      cam2world: (B, 4, 4) float32; focal_length: (B,) float32.
+      cam2world: (B, 4, 4) float32; focal_length: (B,) float32, or None
+        for an orthographic camera.
       depth_samples_per_ray: S coarse and S fine samples per ray (the
         reference always samples fine: `--fine_sampling` is always true).
       rng: None for deterministic sampling; a `torch.Generator` for
@@ -102,7 +108,10 @@ def render(sample_fn: SampleFn, height: int, width: int,
     def unflatten(v):
         return v.reshape(b, height, width, s, -1)
 
-    out_coarse = sample_fn(query_points, requests)
+    def field(points):
+        return sample_fn(points, requests, ray_directions)
+
+    out_coarse = field(query_points)
     sigma = unflatten(out_coarse['sigma'])[..., 0]
     rgb = unflatten(out_coarse['rgb'])
     overflow_resid = out_coarse.get('overflow_resid')
@@ -120,7 +129,7 @@ def render(sample_fn: SampleFn, height: int, width: int,
                          ray_directions[..., None, :] *
                          z_samples[..., :, None])
 
-    out_fine = sample_fn(query_points_fine, requests)
+    out_fine = field(query_points_fine)
     if out_fine.get('overflow_resid') is not None:
         overflow_resid = (out_fine['overflow_resid']
                           if overflow_resid is None else

@@ -13,7 +13,9 @@ b2 0.999, eps 1e-8) at 6e-5, divided by 10 from iteration 60,000 of
 The state is updated in place. Every draw comes from the state's
 `torch.Generator` (z, the render's depths and PDF draws, then the
 stochastic-depth masks), or from arrays injected as the JAX package
-injects them: `batch['z']` and `batch['noise']` ('depth', 'pdf_u').
+injects them: `batch['z']` and `batch['noise']` ('depth', 'pdf_u', and
+'sg_noise' for a noise-enabled generator, which otherwise draws fresh
+StyleGAN noise for every target render).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
 from nerf_from_image_tpu_torch.models.generator import Generator, Sampler
+from nerf_from_image_tpu_torch.models.stylegan import NoiseSource
 from nerf_from_image_tpu_torch.ops import triplane_cuda
 from nerf_from_image_tpu_torch.render.renderer import render
 
@@ -85,18 +88,22 @@ def render_distillation_targets(
         focal: Optional[torch.Tensor], center: Optional[torch.Tensor],
         bbox: Optional[torch.Tensor], cfg: EncoderConfig,
         rng: Union[torch.Generator, Dict[str, torch.Tensor]],
-        sampler: Sampler = triplane_cuda.sample_triplane
+        sampler: Sampler = triplane_cuda.sample_triplane,
+        noise: Optional[NoiseSource] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The frozen generator's (image clipped to [-1, 1] (B, H, W, 3), mask
     (B, H, W), canonical coordinates (B, H, W, 3), ws (B, 15, 512)), all
     without a graph. `rng` draws the render's depths and PDF draws, or
-    is {'depth', 'pdf_u'}, as `render` takes it."""
+    is {'depth', 'pdf_u'}, as `render` takes it. A noise-enabled generator
+    renders with fresh StyleGAN noise: `noise` (a generator, or per-layer
+    values), else drawn from `rng` when it is a generator, else its
+    'const' noise."""
     ws = gen.map(z)
-    state = gen.synthesize(ws)
-    out = render(lambda pts, reqs: gen.sample(state, pts, reqs,
-                                              sampler=sampler),
-                 cfg.resolution, cfg.resolution, pose, focal,
-                 cfg.scene_range, cfg.white_background,
+    if noise is None and isinstance(rng, torch.Generator):
+        noise = rng
+    state = gen.synthesize(ws, noise=noise)
+    out = render(gen.field(state, sampler), cfg.resolution, cfg.resolution,
+                 pose, focal, cfg.scene_range, cfg.white_background,
                  cfg.depth_samples_per_ray, rng=rng, center=center,
                  bbox=bbox, compute_coords=True)
     return out.rgb.clamp(-1.0, 1.0), out.mask, out.semantics, ws
@@ -137,7 +144,8 @@ def train_step(state: EncoderTrainState, batch: Batch, gen: Generator,
         render_rng = {k: noise[k] for k in ('depth', 'pdf_u') if k in noise}
     targets = render_distillation_targets(
         gen, z, pose, batch.get('focal'), batch.get('center'),
-        batch.get('bbox'), cfg, render_rng)
+        batch.get('bbox'), cfg, render_rng,
+        noise=(noise or {}).get('sg_noise', state.rng))
 
     encoder = state.encoder.train()
     loss, metrics = distillation_loss(encoder, *targets, state.rng)

@@ -22,7 +22,10 @@ The renders are gradient-free and deterministic (no depth jitter), as in
 the JAX package. They run the generator's default sampler: kernel B1 on
 the card, and for the normals B1 again and B2's coordinate gradient. The
 JAX evaluator renders unfused (its generator's `fuse_decode` is off), so
-B5a does not run here.
+B5a does not run here. A noise-enabled generator renders each batch with
+fresh StyleGAN noise from a fixed seed (`EVAL_NOISE_SEED`,
+`TRAIN_IMAGES_NOISE_SEED`); a view-direction generator with its rays'
+directions.
 
 Encoder and class conditioning (the reconstruction metrics, the test
 split's evaluation and the `_test` families) are not ported yet and raise
@@ -48,6 +51,12 @@ from nerf_from_image_tpu_torch.render.renderer import RenderOutput, render
 from nerf_from_image_tpu_torch.utils import io as io_lib
 
 N_IMAGES_FID_MAX = 8000  # the Pix2NeRF protocol
+# Seeds of a noise-enabled generator's StyleGAN noise: the training images
+# at iteration i draw from TRAIN_IMAGES_NOISE_SEED + i, the evaluation's
+# batch at `start` from EVAL_NOISE_SEED + i * 1000003 + start (the JAX
+# evaluator's fold-ins of its keys 4242 and 2424).
+TRAIN_IMAGES_NOISE_SEED = 4242
+EVAL_NOISE_SEED = 2424
 FLAG_MODES = "GAN training's flag-only modes"
 
 
@@ -201,17 +210,23 @@ class GANEvaluator:
     def render(self, gen: Generator, z: torch.Tensor, pose: torch.Tensor,
                focal: Optional[torch.Tensor], center: Optional[torch.Tensor],
                bbox: Optional[torch.Tensor], compute_normals: bool,
-               compute_semantics: bool) -> RenderOutput:
+               compute_semantics: bool,
+               noise_seed: Optional[int] = None) -> RenderOutput:
         """One gradient-free render of latents `z` from the given cameras
-        (the normals take their point gradient inside)."""
+        (the normals take their point gradient inside). A noise-enabled
+        generator draws its StyleGAN noise from a generator seeded
+        `noise_seed` (its 'const' noise when None)."""
         cfg = self.cfg
+        noise = None
+        if gen.use_stylegan_noise and noise_seed is not None:
+            noise = torch.Generator(device=self.device).manual_seed(
+                noise_seed)
         with torch.no_grad():
-            state = gen.synthesize(gen.map(z))
-            return render(lambda pts, reqs: gen.sample(state, pts, reqs),
-                          cfg.resolution, cfg.resolution, pose, focal,
-                          cfg.scene_range, cfg.white_background,
-                          cfg.depth_samples_per_ray, center=center,
-                          bbox=bbox,
+            state = gen.synthesize(gen.map(z), noise=noise)
+            return render(gen.field(state), cfg.resolution, cfg.resolution,
+                          pose, focal, cfg.scene_range,
+                          cfg.white_background, cfg.depth_samples_per_ray,
+                          center=center, bbox=bbox,
                           compute_normals=compute_normals,
                           compute_semantics=compute_semantics)
 
@@ -258,8 +273,10 @@ class GANEvaluator:
                           target[..., :3].transpose(0, 3, 1, 2) / 2 + 0.5,
                           iteration)
         for tag, gen in (('rgb', state.gen), ('inference', state.gen_ema)):
+            # The same noise for G and its EMA, fixed per iteration.
             out = self.render(gen, z, pose, focal, center, bbox, True,
-                              cfg.attention_values > 0)
+                              cfg.attention_values > 0,
+                              noise_seed=TRAIN_IMAGES_NOISE_SEED + iteration)
             writer.add_images(f'img/{tag}', _to01(out.rgb).cpu().numpy(),
                               iteration)
             if tag == 'rgb':
@@ -307,7 +324,8 @@ class GANEvaluator:
                 self._field(split, idx, 'focal_length'),
                 self._field(split, idx, 'center'),
                 self._field(split, idx, 'bbox'), first,
-                first and cfg.attention_values > 0)
+                first and cfg.attention_values > 0,
+                noise_seed=EVAL_NOISE_SEED + iteration * 1000003 + start)
             rgb = _to01(out.rgb)
             self._sync()
             t1 = time.perf_counter()

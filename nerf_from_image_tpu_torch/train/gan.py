@@ -21,8 +21,11 @@ versions.
 
 The state is updated in place. Every random draw comes from the state's
 `torch.Generator`, or from arrays injected as the JAX package injects
-them: `batch['noise']` ('depth', 'pdf_u', 'strata', 'perturb') and
-`batch['aug_tform']`. Path-length regularization, dual discriminators,
+them: `batch['noise']` ('depth', 'pdf_u', 'strata', 'perturb', and
+'sg_noise', the per-layer StyleGAN noise of a noise-enabled generator,
+which otherwise draws fresh noise on every forward) and
+`batch['aug_tform']`. A view-direction generator (carla) renders with
+its rays' directions. Path-length regularization, dual discriminators,
 and encoder or class conditioning are not ported yet.
 """
 
@@ -88,6 +91,10 @@ class GANConfig:
     plane_resolution: int = 256
     channel_base: int = 32768
     channel_max: int = 512
+    use_viewdir: bool = False  # carla's view-direction mapper
+    # = not --disable_stylegan_noise (cub, imagenet_elephant): fresh
+    # per-layer noise on every forward.
+    use_stylegan_noise: bool = False
     # Not ported yet: g_step and d_step raise when one is set.
     path_length_regularization: bool = False
     dual_discriminator: bool = False
@@ -125,7 +132,8 @@ def make_models(cfg: GANConfig, dtype: torch.dtype = torch.float32,
                     img_resolution=cfg.plane_resolution,
                     channel_base=cfg.channel_base,
                     channel_max=cfg.channel_max, dtype=dtype, device=device,
-                    seed=seed)
+                    seed=seed, use_viewdir=cfg.use_viewdir,
+                    use_stylegan_noise=cfg.use_stylegan_noise)
     disc = Discriminator(resolution=cfg.resolution,
                          nc=4 if cfg.supervise_alpha else 3,
                          camera_flipped=cfg.camera_flipped,
@@ -219,17 +227,20 @@ def generator_forward(gen: Generator, z: torch.Tensor, pose: torch.Tensor,
                       ) -> Tuple[RenderOutput, Dict[str, torch.Tensor]]:
     """Maps z, synthesizes, renders; with `requests` (regularizers of
     `Generator.sdf_losses`), also runs those. `noise` replaces the draws
-    of `rng` with the injected arrays it holds ('depth', 'pdf_u' for the
-    render; 'strata', 'perturb' for the regularizers). Returns (render,
-    regularizers)."""
-    state = gen.synthesize(gen.map(z))
+    of `rng` with the injected arrays it holds ('sg_noise', the per-layer
+    StyleGAN noise, outermost layer first; 'depth', 'pdf_u' for the
+    render; 'strata', 'perturb' for the regularizers). A noise-enabled
+    generator draws its StyleGAN noise from `rng` first, then the render
+    draws. Returns (render, regularizers)."""
+    sg_noise = rng
+    if noise is not None and 'sg_noise' in noise:
+        sg_noise = noise['sg_noise']
+    state = gen.synthesize(gen.map(z), noise=sg_noise)
     render_rng = rng
     if noise is not None and ('depth' in noise or 'pdf_u' in noise):
         render_rng = {k: noise[k] for k in ('depth', 'pdf_u') if k in noise}
-    out = render(lambda pts, reqs: gen.sample(state, pts, reqs,
-                                              sampler=sampler),
-                 cfg.resolution, cfg.resolution, pose, focal,
-                 cfg.scene_range, cfg.white_background,
+    out = render(gen.field(state, sampler), cfg.resolution, cfg.resolution,
+                 pose, focal, cfg.scene_range, cfg.white_background,
                  cfg.depth_samples_per_ray, rng=render_rng)
     extra = {}
     if requests:

@@ -4,10 +4,12 @@
 1000 Adam steps (optax's defaults: b1 0.9, b2 0.999, eps 1e-8 outside the
 square root; no warmup, no clipping) on the distance MSE to ||x|| - 1 plus
 the weighted eikonal loss over stratified volume samples, then EMA <-
-params as a copy. Both losses decode on the gather sampler
-(`ops/triplane.sample_triplane_gather`), as the JAX package's pretraining
-decodes through XLA: no kernel runs here. The JAX package scans the steps
-in one compiled program; here they are a Python loop.
+params as a copy. A noise-enabled generator pretrains with fresh
+StyleGAN noise every step, as the JAX package's does. Both losses decode
+on the gather sampler (`ops/triplane.sample_triplane_gather`), as the
+JAX package's pretraining decodes through XLA: no kernel runs here. The
+JAX package scans the steps in one compiled program; here they are a
+Python loop.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 
 from nerf_from_image_tpu_torch.models import generator as generator_lib
+from nerf_from_image_tpu_torch.models.stylegan import NoiseSource
 from nerf_from_image_tpu_torch.ops import triplane
 from nerf_from_image_tpu_torch.train import gan as gan_lib
 
@@ -25,25 +28,27 @@ REQUESTS = ('sdf_distance_loss', 'sdf_eikonal_loss')
 NSTRATA = 32
 
 
-def sdf_planes(gen: generator_lib.Generator,
-               z: torch.Tensor) -> torch.Tensor:
+def sdf_planes(gen: generator_lib.Generator, z: torch.Tensor,
+               noise: Optional[NoiseSource] = None) -> torch.Tensor:
     """map -> synthesis of the planes only (the palette is not needed):
-    (B, 3, R, R, 32) channel-last, as `sdf_losses` takes them."""
+    (B, 3, R, R, 32) channel-last, as `sdf_losses` takes them. `noise`:
+    a noise-enabled generator's StyleGAN noise source."""
     ws = gen.map(z)
-    planes = gen.synthesis_network(ws[:, :14])
-    planes = planes.reshape(z.shape[0], 3, generator_lib.PLANE_CHANNELS,
-                            planes.shape[-2], planes.shape[-1])
-    return triplane.planes_channel_last(planes)
+    return triplane.planes_channel_last(
+        gen.synthesize_planes(ws[:, :14], noise))
 
 
 def pretrain_losses(gen: generator_lib.Generator, z: torch.Tensor,
                     rng: Union[torch.Generator, Dict[str, torch.Tensor]],
-                    eikonal_weight: float
+                    eikonal_weight: float,
+                    noise: Optional[NoiseSource] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One step's (loss, dist, eik): the batch means of the distance and
     eikonal losses and loss = dist + eikonal_weight * eik. `rng` draws
-    the strata (or is {'strata': ...}, as `sdf_losses` takes it)."""
-    losses = gen.sdf_losses(sdf_planes(gen, z), rng, REQUESTS, NSTRATA)
+    the strata (or is {'strata': ...}, as `sdf_losses` takes it); `noise`
+    is the StyleGAN noise of a noise-enabled generator."""
+    losses = gen.sdf_losses(sdf_planes(gen, z, noise), rng, REQUESTS,
+                            NSTRATA)
     dist = losses['sdf_distance_loss'].mean()
     eik = losses['sdf_eikonal_loss'].mean()
     return dist + eikonal_weight * eik, dist, eik
@@ -66,8 +71,10 @@ def pretrain_sdf(state: gan_lib.GANTrainState, cfg: gan_lib.GANConfig,
         latent) and 'strata' (n_steps, B, n, n, n, 3) with n = 31.
       return_losses: also return the per-step (dist, eik), two (n_steps,)
         float32 tensors.
-      generator: the source of the z and strata draws (z first, then the
-        strata, each step); None draws from `state.rng`.
+      generator: the source of the z, StyleGAN noise (a noise-enabled
+        generator's fresh noise, as the JAX package draws it every step)
+        and strata draws, in that order each step; None draws from
+        `state.rng`.
 
     Returns the state, and with `return_losses` (state, (dist, eik)).
     """
@@ -87,7 +94,8 @@ def pretrain_sdf(state: gan_lib.GANTrainState, cfg: gan_lib.GANConfig,
         reg_rng = rng
         if injected is not None and 'strata' in injected:
             reg_rng = {'strata': injected['strata'][step].to(device)}
-        loss, dist, eik = pretrain_losses(gen, z, reg_rng, eikonal_weight)
+        loss, dist, eik = pretrain_losses(gen, z, reg_rng, eikonal_weight,
+                                          rng)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         for p, g in zip(params, grads):
             p.grad = g

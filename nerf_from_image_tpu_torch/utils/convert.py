@@ -39,9 +39,12 @@ _RENAMES = (
     ('decoder.fc1.', 'decoder.net.2.'),
 )
 # Reference keys that the JAX tree need not carry: the noise parameters
-# and buffers exist only when the JAX model ran with noise, and the port's
-# slice never reads them.
+# and buffers exist only when the JAX model ran with noise, and a model
+# without noise never reads them.
 _OPTIONAL_SUFFIXES = ('.noise_strength', '.noise_const')
+# flax LayerNorm's scale is the reference's weight (the view-direction
+# mapper's norm1..norm4).
+_LAYERNORM_SCALE = re.compile(r'(viewdir_mapper\.norm\d)\.scale$')
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ''
@@ -69,7 +72,9 @@ def from_jax_params(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
 
     Returns:
       {reference key: float32 array}, with the constant `resample_filter`
-      buffers of every synthesis block and conv layer added.
+      buffers of every synthesis block and conv layer added; the noise
+      parameters and `noise_const` buffers and the view-direction mapper
+      where the JAX tree has them.
     """
     sd: Dict[str, np.ndarray] = {}
     for collection in ('params', 'buffers'):
@@ -78,6 +83,7 @@ def from_jax_params(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
                 if key.startswith(old):
                     key = new + key[len(old):]
                     break
+            key = _LAYERNORM_SCALE.sub(r'\1.weight', key)
             sd[key] = np.asarray(value, dtype=np.float32)
     filt = _bilinear_filter()
     owners = set()

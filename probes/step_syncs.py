@@ -6,10 +6,13 @@ Builds `chip_smoke.py`'s inversion (the full-width generator in p3d_car's
 geometry, VGG LPIPS, batch 8, 128^2 rays, 64 + 64 samples, 15 crops),
 takes one warm-up step, then one step under
 `torch.cuda.set_sync_debug_mode('warn')`, which warns at every call that
-synchronizes the host with the card. Each warning is kept with the port's
-frames of the Python stack at that moment. Prints each synchronizing call
-site of the port with its count in the step and the innermost port
-frames, and writes the list to `chiprun_out/step_syncs.json`.
+synchronizes the host with the card. Each such warning ("called a
+synchronizing CUDA operation") is kept with the port's frames of the
+Python stack at that moment; any other warning, such as torch's notice
+that the debug mode is a prototype, is printed as a notice and not
+counted. Prints each synchronizing call site of the port with its count
+in the step and the innermost port frames, and writes the list to
+`chiprun_out/step_syncs.json`.
 
 A synchronization in a step does not stop the CLI's PnP worker, but the
 host waits there until the card has run everything queued before it,
@@ -72,6 +75,12 @@ def main() -> None:
             torch.cuda.set_sync_debug_mode('default')
     torch.cuda.synchronize()
 
+    sync = 'called a synchronizing CUDA operation'
+    notices = [r['message'][:160] for r in records
+               if sync not in r['message']]
+    records = [r for r in records if sync in r['message']]
+    for notice in notices:
+        print(f'notice, not counted: {notice}')
     sites = collections.Counter(r['frames'][-1] if r['frames'] else
                                 '(outside the port)' for r in records)
     out = []
@@ -86,7 +95,8 @@ def main() -> None:
     print(f'{len(records)} synchronizing calls in one step')
     os.makedirs('chiprun_out', exist_ok=True)
     with open(os.path.join('chiprun_out', 'step_syncs.json'), 'w') as f:
-        json.dump({'total': len(records), 'sites': out}, f, indent=1)
+        json.dump({'total': len(records), 'sites': out,
+                   'notices': notices}, f, indent=1)
 
 
 if __name__ == '__main__':

@@ -188,7 +188,7 @@ def test_reference_pth_gives_jax_converted_ema(tmp_path):
     def ema_render(g):
         with torch.no_grad():
             st = g.synthesize(g.map(z))
-            return render(lambda pts, reqs: g.sample(st, pts, reqs), 16, 16,
+            return render(g.field(st), 16, 16,
                           cam, focal, CFG.scene_range, True, 4)
 
     a, b = ema_render(port.gen_ema), ema_render(from_jax)

@@ -30,7 +30,7 @@ The port's own batch loop (the overlap of PnP with the steps, the
 resume from a report checkpoint, the logs) is held in
 `test_torch_port_cli_overlap.py`, which takes this file's fixture. The
 encoder's load-or-train branch runs with small step counts. Unported
-branches raise.
+branches raise; the other datasets' generator features reach the run.
 """
 
 import functools
@@ -269,8 +269,6 @@ def test_encoder_load_or_train(assets, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize('extra,match', [
-    (['--run_inversion', '--inv_export_demo_sample'], 'the demo'),
-    (['--inv_manual_input_path', 'x.png'], 'the demo'),
     (['--run_inversion', '--mesh_shape', 'data:2'], 'several cards'),
     (['--run_inversion', '--multihost'], 'several cards'),
     (['--run_inversion', '--perturb_poses', '0.1'], 'flag-only modes'),
@@ -282,12 +280,26 @@ def test_unported_branches_raise(extra, match):
         cli_run.main(['--dataset', 'p3d_car'] + extra, device='cpu')
 
 
-@pytest.mark.parametrize('dataset,match', [
-    ('cub', 'generator features'),  # StyleGAN noise, then orthographic cameras
-    ('imagenet_elephant', 'generator features'),  # StyleGAN noise
-    ('carla', 'generator features'),  # view directions
-])
-def test_unported_dataset_features_raise(dataset, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli_run.main(['--dataset', dataset, '--run_inversion'],
-                     device='cpu')
+@pytest.mark.parametrize('dataset,extra', [
+    ('cub', ['--run_inversion']),  # StyleGAN noise, orthographic cameras
+    ('imagenet_elephant', ['--run_inversion']),  # StyleGAN noise
+    ('carla', ['--run_inversion']),  # view directions
+    ('cub', []),
+    ('imagenet_elephant', []),
+    ('carla', []),
+], ids=['cub', 'imagenet_elephant', 'carla', 'cub-training',
+        'imagenet_elephant-training', 'carla-training'])
+def test_dataset_features_reach_the_run(dataset, extra, monkeypatch):
+    """The other datasets' generator features pass `check_ported`: the CLI
+    goes on to load the dataset (which the test replaces), for the
+    inversion and for training."""
+    class Reached(Exception):
+        pass
+
+    def stop(args, manual_image=None):
+        assert args.dataset == dataset
+        raise Reached
+
+    monkeypatch.setattr(cli_run.loaders, 'load_dataset', stop)
+    with pytest.raises(Reached):
+        cli_run.main(['--dataset', dataset] + extra, device='cpu')

@@ -245,23 +245,6 @@ def _write_srn(root, stage, n_objects=2, n_views=3, src_res=48):
                        pose.reshape(1, 16))
 
 
-def _write_carla(root, n=3, src_res=40):
-    rng = np.random.default_rng(7)
-    base = os.path.join(root, 'carla')
-    os.makedirs(os.path.join(base, 'carla_poses'))
-    for i in range(n):
-        image_io.write_png(os.path.join(base, f'{i:05d}.png'),
-                           (rng.random((src_res, src_res, 3)) *
-                            255).astype(np.uint8))
-        ext = np.eye(4)[:3]
-        ext[:, 3] = [0.1 * i, 0.2, 10.0]
-        np.save(os.path.join(base, 'carla_poses', f'{i:05d}_extrinsics.npy'),
-                ext)
-    intr = np.zeros((1, 1, 3, 3))
-    intr[0, 0] = [[56.0, 0, 20.0], [0, 56.0, 20.0], [0, 0, 1]]
-    np.save(os.path.join(base, 'carla_poses', 'intrinsics.npy'), intr)
-
-
 def _assert_splits_equal(got, ref):
     assert (got is None) == (ref is None)
     if got is None:
@@ -292,7 +275,7 @@ def test_load_dataset_matches_jax(tmp_path, dataset, extra):
     if dataset == 'p3d_car':
         fixtures.write_p3d_car(data, n_train=5, n_test=4, size=(40, 48))
     elif dataset == 'carla':
-        _write_carla(data)
+        fixtures.write_carla(data, 3)
     else:
         _write_srn(data, 'train')
         _write_srn(data, 'test', n_objects=1)

@@ -134,7 +134,7 @@ def test_coordinate_render_matches_jax(pair):
 
     def port_render(compute_coords):
         state = port.synthesize(port.map(torch.tensor(batch['z'])))
-        return render(lambda pts, reqs: port.sample(state, pts, reqs), RES,
+        return render(port.field(state), RES,
                       RES, torch.tensor(batch['pose']),
                       torch.tensor(batch['focal']), 1.4, False, SAMPLES,
                       rng={k: torch.tensor(a) for k, a in draws.items()},

@@ -272,7 +272,7 @@ def test_evaluate_checkpoint_records_inception_activations(nets):
     with torch.no_grad():
         out, _, _ = inv.render_from_params(fused, params, cfg)
         state = fused.synthesize(ws)
-        out_r = render(lambda pts, reqs: fused.sample(state, pts, reqs), 16,
+        out_r = render(fused.field(state), 16,
                        16, cam, perm[1], 1.4, False, 4)
         want = port_net(pipe._to01(out.rgb)).numpy()
         want_r = port_net(pipe._to01(out_r.rgb)).numpy()

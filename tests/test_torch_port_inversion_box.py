@@ -130,11 +130,11 @@ def test_gradients_match_jax_with_face_samples_pinned(case):
     on_face = []
     render = inv.render
 
-    def pinned_render(sample_fn, *args):
-        def pinned(pts, reqs):
+    def pinned_render(sample_fn, *args, **kwargs):
+        def pinned(pts, reqs, dirs):
             on_face.append(int(_on_face(pts, torch).any(-1).sum()))
-            return sample_fn(_pin_torch(pts), reqs)
-        return render(pinned, *args)
+            return sample_fn(_pin_torch(pts), reqs, dirs)
+        return render(pinned, *args, **kwargs)
 
     with pytest.MonkeyPatch.context() as patch:
         patch.setattr(inv, 'render', pinned_render)

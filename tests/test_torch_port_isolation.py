@@ -2,8 +2,9 @@
 
 The machine with the card has no JAX, so one such import anywhere in the
 port or in `chip_smoke.py` ends a run there at import time. These tests
-import every port module with those packages blocked, scan the sources,
-and check that entry points never drop to the CPU on their own.
+import every port module with those packages blocked (`cli/demo.py`
+among them, also with cv2 and detectron2 blocked), scan the sources, and
+check that entry points never drop to the CPU on their own.
 """
 
 import pathlib
@@ -12,6 +13,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -99,3 +101,31 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         InceptionV3FID()
     assert device_lib.resolve_device('cpu') == torch.device('cpu')
+
+
+def test_demo_runs_without_cv2_or_detectron2(tmp_path):
+    """`cli/demo.py` imports cv2 and detectron2 only where it needs them:
+    with both blocked, a user's RGBA image still loads (its alpha is the
+    mask), and GrabCut and Mask R-CNN step aside (None)."""
+    from nerf_from_image_tpu_torch.data import image_io
+    rgba = np.zeros((40, 40, 4), np.uint8)
+    rgba[..., :3] = 128
+    rgba[10:30, 5:25, 3] = 255
+    image_io.write_png(str(tmp_path / 'a.png'), rgba)
+    code = (
+        "import sys\n"
+        "for name in ('cv2', 'detectron2', 'jax', 'flax',\n"
+        "             'nerf_from_image_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np\n"
+        "from nerf_from_image_tpu_torch.cli import demo\n"
+        "out = demo.load_manual_image(sys.argv[1], 3)\n"
+        "assert out['bbox'].tolist() == [5, 10, 24, 29], out['bbox']\n"
+        "assert demo.grabcut_foreground(np.ones((64, 64, 3))) is None\n"
+        "assert demo.detectron2_segment(np.ones((64, 64, 3)), 3) is None\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, '-c', code,
+                           str(tmp_path / 'a.png')], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith('ok')

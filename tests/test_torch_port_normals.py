@@ -181,7 +181,7 @@ def test_render_with_normals_and_semantics(pair):
     port, z, cam, focal, _, (_, _, ref, _) = pair
     with torch.no_grad():
         state = port.synthesize(port.map(_t(z)))
-        out = render(lambda pts, reqs: port.sample(state, pts, reqs), RES,
+        out = render(port.field(state), RES,
                      RES, _t(cam), _t(focal), CONFIG['scene_range'], True,
                      SAMPLES, compute_normals=True, compute_semantics=True)
     assert float(out.mask.max()) > 0.3  # the views see the surface

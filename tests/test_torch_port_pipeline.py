@@ -179,10 +179,7 @@ def case():
         ws, ws_other = (port.map(_t(rng.standard_normal((BATCH, 32))))
                         for _ in range(2))
         gt_cam, gt_focal = _cameras(rng, BATCH)
-        state = port.synthesize(ws)
-
-        def field(pts, reqs):
-            return port.sample(state, pts, reqs)
+        field = port.field(port.synthesize(ws))
 
         front = render(field, RES, RES, gt_cam, gt_focal, 1.4, False, SAMPLES)
         perm_cam, perm_focal = _cameras(rng, BATCH)

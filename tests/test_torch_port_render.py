@@ -141,7 +141,7 @@ def test_render(pair):
     cam, focal = _camera()
     with torch.no_grad():
         state = port.synthesize(port.map(torch.tensor(z)))
-        out = render(lambda pts, reqs: port.sample(state, pts, reqs), RES,
+        out = render(port.field(state), RES,
                      RES, torch.tensor(cam), torch.tensor(focal),
                      CONFIG['scene_range'], True, SAMPLES)
     assert out.rgb.shape == (BATCH, RES, RES, 3)

@@ -137,7 +137,7 @@ def test_render_with_injected_draws_matches_jax(pair):
                      fine_sampling=True)
     with torch.no_grad():
         pstate = port.synthesize(port.map(torch.tensor(z)))
-        out = render(lambda pts, reqs: port.sample(pstate, pts, reqs), RES,
+        out = render(port.field(pstate), RES,
                      RES, torch.tensor(cam), torch.tensor(focal),
                      CONFIG['scene_range'], False, SAMPLES,
                      rng={k: torch.tensor(v) for k, v in draws.items()})
@@ -147,7 +147,7 @@ def test_render_with_injected_draws_matches_jax(pair):
     # With draws from a generator, the render is finite and differs from
     # the one with the injected draws.
     with torch.no_grad():
-        drawn = render(lambda pts, reqs: port.sample(pstate, pts, reqs), RES,
+        drawn = render(port.field(pstate), RES,
                        RES, torch.tensor(cam), torch.tensor(focal),
                        CONFIG['scene_range'], False, SAMPLES,
                        rng=torch.Generator().manual_seed(0))
