@@ -41,7 +41,8 @@ samples):
 - the GAN-training CLI end to end (`python -m nerf_from_image_tpu_torch
   .cli.run --dataset p3d_car ...`, in this process at its default flags:
   batch 32, bf16) on the same fixture and weight files: a fresh run
-  (1000 SDF pretraining steps, iterations 0-3, the iteration-3
+  (100 of the CLI's 1000 SDF pretraining steps, iterations 0-3, the
+  iteration-3
   evaluation with FID and the image families with normals and
   semantics, `latest` and `best`) and a resume to iteration 8;
 - the demo (`--inv_manual_input_path`) on the same fixture and files: a
@@ -136,7 +137,33 @@ Phases, each printed as one JSON line:
              training CLI (resumed at 12,500: one G step, B1 2 + B4 2, one
              D step, B1 2; no pretraining); ms per step (CUDA events),
              peak memory; cub's inversion step (orthographic, injected
-             StyleGAN noise) and carla's G step against the plain versions
+             StyleGAN noise) and carla's G step (at the first of batches
+             32, 16, 8 at which the plain step fits) against the plain
+             versions
+  flag_modes GAN training's flag-only modes through the training CLI at
+             full width, each resumed from a reference-format checkpoint
+             of its configuration at the first of batches 32, 16, 8 that
+             fits (the batch and any out-of-memory attempt in the line):
+             carla with --use_encoder --dual_discriminator
+             --path_length_regularization (two G + D pairs from 14,996,
+             then the encoder-mode evaluation at 14,999: reconstruction
+             metrics with LPIPS, two FIDs), cub with --use_class, p3d_car
+             with --use_encoder --attention_values 0 --perturb_poses 5,
+             carla with --use_encoder --dual_discriminator_mse (one G and
+             one D step each); launches around every G step (B1 and B4 2 a
+             render: 4 under dual D), D step (B1 2 a fake render) and
+             evaluation (B1, B2; never B4 or B5a), ms per step (CUDA
+             events), peak memory; carla's G step (both renders and the
+             path length's backward) and D step (both discriminators, R1)
+             at the run's batch (or the first smaller one at which the
+             plain steps fit) against the plain sampler, with the noise
+             floor of two kernel runs beside them and two wrong kernels
+             that must fail (as in every GAN step check); what the path
+             length's own backward adds to carla's G step (ms, traced,
+             its kernel time by operator group); one inversion step at
+             fine_sampling=False, ray_multiplier 4 (256 stratified samples
+             a ray: B1 1, B2 1, B3 2 + 1) against the plain versions, and
+             its ms
   pretrain   one warm-up step, then 5 pretraining steps (counts reset just
              before and read just after: no kernel runs), ms per step, peak
              memory, dist and eik per step, the EMA a copy of G; one step
@@ -164,6 +191,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -275,6 +303,12 @@ INV_STEPS = 5  # steps of the driven run, and timed steps after a warm-up
 # noise, far below what a wrong tap, plane, axis or sign gives (order 1).
 STEP_LOSS_RTOL = 1e-2  # |loss_k - loss_p| / |loss_p|
 STEP_GRAD_RTOL = 5e-2  # ||g_k - g_p|| / ||g_p||, for z and R
+# The GAN step checks' gradient, to the layer checked, of the terms that
+# see the kernels' output alone (G's adversarial or recon loss, D's fake
+# losses): on an H100 the kernels read 3.6e-2 to 9.7e-2 against the plain
+# sampler, two wrong kernels 0.56 to 1.0 in G, 0.17 to 0.22 in D (where
+# they fail the whole step's layer gradient, 0.12 to 0.15, instead).
+STEP_TERMS_RTOL = 0.2
 
 # The hybrid inversion of one batch (nerf_from_image_tpu/cli/inversion.py):
 # checkpoint steps 0 and 30, PnP over the percentiles of the focals, the
@@ -322,6 +356,9 @@ CLI_WAIT_SHARE = 0.1
 # coordinate gradient per pass) and then two training-image renders with
 # normals (B1 4 and B2 2 each). Pretraining runs no kernel.
 TRAIN_CLI_ITERS = (4, 8)
+# The fresh run's SDF pretraining steps (the CLI's 1000 cut to keep the
+# script within its time; pretrain_phase times the step itself).
+TRAIN_CLI_PRETRAIN_STEPS = 100
 TRAIN_CLI_G = {'triplane_sample': 2, 'triplane_sample_grad_planes': 2}
 TRAIN_CLI_D = {'triplane_sample': 2}
 TRAIN_CLI_EVAL = {'triplane_sample': 8, 'triplane_sample_grad': 2}
@@ -361,6 +398,34 @@ DATASET_EVAL_LAUNCHES = {'cub': {'triplane_sample_fused': 4},
 DATASET_G = TRAIN_CLI_G
 DATASET_D = TRAIN_CLI_D
 CUB_SCALE = 0.6  # the orthographic step check's camera scale s
+# GAN training's flag-only modes through the training CLI at full width,
+# each resumed from a reference-format checkpoint of its configuration:
+# carla with the encoder, dual discriminators and path-length
+# regularization (two G + D pairs from 14,996, then the evaluation at
+# 14,999 in encoder mode), cub with class conditioning, p3d_car with the
+# encoder, no palette and perturbed poses, and carla with the encoder and
+# the MSE reconstruction mode (which cannot take p3d_car's and cub's
+# alpha) (one G and one D step from 12,500 each). Each runs at the first
+# batch of FLAG_BATCHES that fits on the card.
+FLAG_MODES = {
+    'carla': ('carla', ['--use_encoder', '--dual_discriminator',
+                        '--path_length_regularization']),
+    'cub': ('cub', ['--use_class']),
+    'p3d_car': ('p3d_car', ['--use_encoder', '--attention_values', '0',
+                            '--perturb_poses', '5']),
+    'carla_mse': ('carla', ['--use_encoder', '--dual_discriminator_mse']),
+}
+FLAG_RESUME = {'carla': 14996, 'cub': 12500, 'p3d_car': 12500,
+               'carla_mse': 12500}
+FLAG_ITERS = {'carla': 4, 'cub': 2, 'p3d_car': 2, 'carla_mse': 2}
+FLAG_BATCHES = (32, 16, 8)
+# Renders a G step and a D step run: dual D renders twice in each, the
+# recon mode's D step only for D2.
+FLAG_RENDERS = {'carla': (2, 2), 'cub': (1, 1), 'p3d_car': (1, 1),
+                'carla_mse': (2, 1)}
+# The evaluation renders through B1 (and B2 for the first batch's
+# normals), never B4 or B5a.
+FLAG_EVAL = {triplane_cuda.KERNEL: True, triplane_cuda.GRAD_KERNEL: True}
 NORMAL_ATOL = 5e-2
 
 # GAN training: p3d_car as the JAX CLI builds it
@@ -1043,10 +1108,14 @@ def r512_phase(z, cam, focal, rows: dict) -> None:
          fused=fused)
 
 
-def trace(fn) -> dict:
-    """One call of `fn` under torch.profiler: wall time, device busy time,
-    its idle share, the costliest kernels, and the operators whose own
-    launches cost the most device time, with their input shapes."""
+def trace(fn, op_groups=None) -> dict:
+    """One call of `fn` under torch.profiler: wall time, device busy time
+    (the union of the kernels' intervals), its idle share, the kernels'
+    summed time (above the busy time where kernels overlap), the costliest
+    kernels, and the operators whose own launches cost the most device
+    time, with their input shapes. `op_groups` (name: predicate of an
+    operator's name and input shapes) adds each group's summed kernel
+    time, the rest under 'other'."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -1059,14 +1128,29 @@ def trace(fn) -> dict:
          if e.device_type == torch.autograd.DeviceType.CUDA and
          e.self_device_time_total > 0),
         key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    sum_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    intervals = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for start, stop in intervals:
+        busy_us += max(stop - max(start, end), 0.0)
+        end = max(end, stop)
+    busy_ms = busy_us / 1e3
     ops = sorted(
         (e for e in prof.key_averages(group_by_input_shape=True)
          if e.device_type == torch.autograd.DeviceType.CPU and
          e.self_device_time_total > 0),
         key=lambda e: e.self_device_time_total, reverse=True)
+    groups = {}
+    for name, test in (op_groups or {}).items():
+        groups[name] = sum(e.self_device_time_total for e in ops
+                           if test(e.key, e.input_shapes)) / 1e3
+    if op_groups:
+        groups['other'] = sum_ms - sum(groups.values())
     return {'profiled_wall_ms': wall_ms, 'device_busy_ms': busy_ms,
             'idle_share': 1.0 - busy_ms / wall_ms,
+            'kernel_sum_ms': sum_ms, 'kernel_ms_by_group': groups,
             'kernel_launches': sum(e.count for e in kernels),
             'top_kernels': [{'name': e.key[:100], 'count': e.count,
                              'device_ms': e.self_device_time_total / 1e3}
@@ -2613,8 +2697,8 @@ def train_cli_phase(assets: dict, rows: dict) -> None:
     """The GAN-training CLI end to end, in this process, through
     `cli.run.main` at its default flags (batch 32, bf16, 128^2, 64 + 64
     samples, p3d_car's ADA, R1, blur and regularizers) on the cli phase's
-    fixture and weight files: a fresh run of 4 iterations (1000 steps of
-    SDF pretraining, G, D, G, D, the iteration-3 evaluation, `latest` and
+    fixture and weight files: a fresh run of 4 iterations
+    (TRAIN_CLI_PRETRAIN_STEPS steps of SDF pretraining, G, D, G, D, the iteration-3 evaluation, `latest` and
     `best`) and a resume by name to 8. Launches are counted around every
     G step, D step, evaluation and pretraining call; the steps' ms come
     from CUDA events around each; the evaluation's seconds from the
@@ -2667,7 +2751,9 @@ def train_cli_phase(assets: dict, rows: dict) -> None:
             assets['data']]
     gan.g_step = counted('g', originals[0], events=True)
     gan.d_step = counted('d', originals[1], events=True)
-    pretrain.pretrain_sdf = counted('pretrain', originals[2])
+    pretrain.pretrain_sdf = counted(
+        'pretrain', lambda *a, **k: originals[2](
+            *a, **dict(k, n_steps=TRAIN_CLI_PRETRAIN_STEPS)))
     train_eval.GANEvaluator.evaluate = counted('evaluate', originals[3])
     train_eval.GANEvaluator.log_training_images = counted('images',
                                                           originals[4])
@@ -2913,15 +2999,18 @@ def demo_phase(assets: dict) -> None:
     emit('demo', started, runs=summary)
 
 
-def dataset_gan_checkpoint(dataset: str, path: str) -> gan.GANConfig:
+def dataset_gan_checkpoint(dataset: str, path: str, flags=(),
+                           iteration: int = TRAIN_ITERATION,
+                           num_classes=None) -> gan.GANConfig:
     """A reference-format GAN checkpoint of the full-width generator and
-    discriminator in `dataset`'s CLI configuration, from seeds, at
-    TRAIN_ITERATION, its noise strengths and the view-direction mapper's
-    output layer drawn away from their zero start. Returns the config."""
-    args = port_config.parse_args(['--dataset', dataset])
+    discriminators in `dataset`'s CLI configuration with `flags`, from
+    seeds, at `iteration`, its noise strengths and the view-direction
+    mapper's output layer drawn away from their zero start. Returns the
+    config."""
+    args = port_config.parse_args(['--dataset', dataset, *flags])
     port_config.override_default_args(args)
     cfg = cli_run.make_gan_config(args, port_config.get_dataset_config(
-        dataset))
+        dataset), num_classes)
     state = gan.init_train_state(cfg, device='cpu', seed=0)
     draws = torch.Generator().manual_seed(13)
     with torch.no_grad():
@@ -2932,7 +3021,7 @@ def dataset_gan_checkpoint(dataset: str, path: str) -> gan.GANConfig:
             out = state.gen.viewdir_mapper.output.weight
             out.copy_(torch.randn(out.shape, generator=draws))
     state.gen_ema.load_state_dict(state.gen.state_dict())
-    state.iteration = TRAIN_ITERATION
+    state.iteration = iteration
     checkpoint.save(move_surface_into_box(checkpoint.gan_checkpoint(state)),
                     path)
     return cfg
@@ -3026,74 +3115,6 @@ def cub_step_check(gan_path: str, lpips: LPIPS) -> dict:
             'grad_R_rel_err': gr_err, 'loss_rtol': STEP_LOSS_RTOL,
             'grad_rtol': STEP_GRAD_RTOL,
             'target_mask_mean': float(target_mask.mean())}
-
-
-def carla_g_step_check(state: gan.GANTrainState, cfg: gan.GANConfig,
-                       poses: np.ndarray, focal: np.ndarray) -> dict:
-    """One G step of the carla CLI's resumed state (the rays' directions
-    through the view-direction mapper) through B1 and B4 against the same
-    step on the plain sampler, on BATCH of the fixture's cameras with
-    injected draws: the loss within STEP_LOSS_RTOL, the gradient norm and
-    the last synthesis layer's gradient within STEP_GRAD_RTOL."""
-    dev = torch.device('cuda')
-    gen_t = torch.Generator(device=dev).manual_seed(17)
-    n = 31
-    res = cfg.resolution
-    fixed = {
-        'z': torch.randn((BATCH, cfg.latent_dim), generator=gen_t,
-                         device=dev),
-        'pose': torch.from_numpy(poses[:BATCH]).to(dev),
-        'focal': torch.from_numpy(focal[:BATCH]).to(dev),
-        'aug_tform': augment.sample_transform(gen_t, BATCH, 0.0),
-        'noise': {
-            'depth': torch.rand((BATCH, res, res, cfg.depth_samples_per_ray),
-                                generator=gen_t, device=dev),
-            'pdf_u': torch.rand((BATCH * res * res,
-                                 cfg.depth_samples_per_ray),
-                                generator=gen_t, device=dev),
-            'strata': torch.rand((BATCH, n, n, n, 3), generator=gen_t,
-                                 device=dev),
-            'perturb': torch.randn((BATCH, n ** 3, 3), generator=gen_t,
-                                   device=dev)}}
-    with torch.no_grad():
-        mask = gan.generator_forward(
-            state.gen, fixed['z'], fixed['pose'], fixed['focal'], cfg,
-            gen_t, noise=fixed['noise'])[0].mask
-    if float(mask.max()) < 0.3:
-        raise AssertionError('carla G step: the render sees no surface')
-    params = list(state.gen.parameters())
-    last_layer = getattr(state.gen.synthesis_network,
-                         f'b{cfg.plane_resolution}').torgb.weight
-    last = [p is last_layer for p in params].index(True)
-
-    def loss_and_grads(sampler):
-        loss, _ = gan.generator_loss(state, fixed, cfg, sampler)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in grads
-             if g is not None]))
-        return float(loss.detach()), float(norm), grads[last]
-
-    reset_counts()
-    k_loss, k_norm, k_last = loss_and_grads(triplane_cuda.sample_triplane)
-    launches = counts()
-    expect_launches('carla G step', launches, **DATASET_G)
-    p_loss, p_norm, p_last = loss_and_grads(triplane.plain_sampler)
-    loss_err = abs(k_loss - p_loss) / abs(p_loss)
-    norm_err = abs(k_norm - p_norm) / p_norm
-    last_err = float((k_last - p_last).float().norm() /
-                     p_last.float().norm())
-    if (loss_err > STEP_LOSS_RTOL or norm_err > STEP_GRAD_RTOL or
-            last_err > STEP_GRAD_RTOL):
-        raise AssertionError(f'carla G step with the kernels differs from '
-                             f'the plain step: loss {loss_err}, grad norm '
-                             f'{norm_err}, last layer {last_err}')
-    return {'batch': BATCH, 'launches': launches, 'loss_kernels': k_loss,
-            'loss_plain': p_loss, 'loss_rel_err': loss_err,
-            'grad_norm_rel_err': norm_err,
-            'last_layer_grad_rel_err': last_err,
-            'loss_rtol': STEP_LOSS_RTOL, 'grad_rtol': STEP_GRAD_RTOL,
-            'mask_mean': float(mask.mean())}
 
 
 def datasets_phase(assets: dict, lpips: LPIPS) -> None:
@@ -3242,12 +3263,467 @@ def datasets_phase(assets: dict, lpips: LPIPS) -> None:
     args = port_config.parse_args(['--dataset', 'carla', '--data_path',
                                    carla['data']])
     train_split = loaders.load_dataset(args)[1]
-    summary['carla']['g_step_check'] = carla_g_step_check(
-        carla['runs']['training']['out']['state'], carla['cfg'],
-        np.ascontiguousarray(train_split.tform_cam2world, np.float32),
-        np.ascontiguousarray(train_split.focal_length, np.float32))
+    summary['carla']['g_step_check'] = gan_step_check(
+        'carla', carla['runs']['training']['out']['state'], carla['cfg'],
+        train_split, FLAG_BATCHES, DATASET_G)
     emit('datasets', started, images=DATASET_IMAGES,
          image_hw=DATASET_IMAGE_HW, **summary)
+    return {dataset: res['data'] for dataset, res in results.items()}
+
+
+def step_batches(state: gan.GANTrainState, cfg: gan.GANConfig,
+                 split, seed: int, b: int) -> dict:
+    """G's batch and second poses, D's real, fake, second real and second
+    fake batches of `b` of the split's views, every draw injected (the
+    path length's noise too), for the step checks."""
+    dev = torch.device('cuda')
+    gen_t = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    res, s, n = cfg.resolution, cfg.depth_samples_per_ray, 31
+
+    def views(latent):
+        idx = rng.integers(0, len(split.images), b)
+        out = {'pose': torch.from_numpy(np.ascontiguousarray(
+            split.tform_cam2world[idx], np.float32)).to(dev),
+            'image': torch.from_numpy(np.ascontiguousarray(
+                split.images[idx], np.float32)).to(dev),
+            'aug_tform': augment.sample_transform(gen_t, b, 0.5)}
+        if split.focal_length is not None:
+            out['focal'] = torch.from_numpy(np.ascontiguousarray(
+                split.focal_length[idx], np.float32)).to(dev)
+        if latent:
+            out['z'] = torch.randn((b, cfg.latent_dim), generator=gen_t,
+                                   device=dev)
+            out['noise'] = {
+                'depth': torch.rand((b, res, res, s), generator=gen_t,
+                                    device=dev),
+                'pdf_u': torch.rand((b * res * res, s), generator=gen_t,
+                                    device=dev)}
+        return out
+
+    g = views(True)
+    r = cfg.plane_resolution
+    g['noise'].update(
+        strata=torch.rand((b, n, n, n, 3), generator=gen_t, device=dev),
+        perturb=torch.randn((b, n ** 3, 3), generator=gen_t, device=dev),
+        ppl_planes=torch.randn((b, 96, r, r), generator=gen_t, device=dev),
+        ppl_attn=torch.randn((b, max(cfg.attention_values, 1), 3),
+                             generator=gen_t, device=dev))
+    if state.gen.use_stylegan_noise:
+        g['noise']['sg_noise'] = state.gen.synthesis_network.noise_values(
+            b, gen_t, dev)
+    return {'g': g, 'g2': views(True), 'real': views(False),
+            'fake': views(True), 'real2': views(False), 'fake2': views(True)}
+
+
+# Wrong kernels for the step checks' control: the plain sampler with each
+# plane's two axes swapped, and one that writes nothing (zeros).
+WRONG_SAMPLERS = {
+    'axes_swapped': lambda planes_cl, coords: triplane.plain_sampler(
+        planes_cl.transpose(2, 3).contiguous(), coords),
+    'zeros': lambda planes_cl, coords: triplane.plain_sampler(
+        planes_cl * 0, coords),
+}
+
+
+def gan_step_check(what: str, state: gan.GANTrainState, cfg: gan.GANConfig,
+                   split, batches_to_try, g_launches: dict,
+                   d_launches=None) -> dict:
+    """The G step (both renders under dual D, and the path length's own
+    backward under PPL) and, with `d_launches`, the D step (both
+    discriminators, R1) of a CLI run's state through the kernels against
+    the same steps on the plain sampler, with the same injected draws of
+    the split's views, at the first batch of `batches_to_try` at which
+    the plain steps fit: each loss within STEP_LOSS_RTOL, the gradient
+    norm and the last synthesis layer's (D: the last discriminator's
+    first layer's) gradient within STEP_GRAD_RTOL, that layer's gradient
+    of the terms that see the kernels' output alone within
+    STEP_TERMS_RTOL. The check's render must see a surface (mask max
+    0.3), and each wrong kernel (WRONG_SAMPLERS) must fail the check;
+    beside each reading, the same errors between two runs of the kernels'
+    step (the noise floor) and of each wrong kernel."""
+    g_params = list(state.gen.parameters())
+    last_layer = getattr(state.gen.synthesis_network,
+                         f'b{cfg.plane_resolution}').torgb.weight
+    g_last = [p is last_layer for p in g_params].index(True)
+    d_params = [p for params, _, _ in gan.discriminator_params(state)
+                for p in params]
+    d_layer = len(d_params) - len(list(
+        (state.disc2 if state.disc2 is not None else state.disc).parameters()))
+
+    def norm(grads):
+        return float(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads
+             if g is not None])))
+
+    def g_step(batches, sampler):
+        g = batches['g']
+        sg_noise = g['noise'].get('sg_noise')
+        loss, metrics = gan.generator_loss(
+            state, g, cfg, sampler,
+            batches['g2'] if cfg.dual_discriminator else None, sg_noise)
+        terms = metrics['loss_g']
+        if cfg.dual_discriminator:
+            terms = (terms + metrics['loss_g_uncond']) / 2.0
+        grads = torch.autograd.grad(loss, g_params, allow_unused=True,
+                                    retain_graph=True)
+        launches = counts()
+        # A second backward of the renders: its launches are the check's.
+        terms_grad, = torch.autograd.grad(terms, last_layer)
+        loss = float(loss.detach())
+        if cfg.path_length_regularization:
+            weighted, _, _ = gan.path_length_loss(state, g, cfg, sg_noise)
+            ppl = torch.autograd.grad(weighted, g_params, allow_unused=True)
+            grads = [a if b is None else b if a is None else a + b
+                     for a, b in zip(grads, ppl)]
+            loss += float(weighted.detach())
+        return (loss, norm(grads), grads[g_last], float(terms.detach()),
+                terms_grad), launches
+
+    def d_step(batches, sampler):
+        # An odd iteration: the D step with R1, as the loop runs it.
+        state.iteration += 1
+        try:
+            total, metrics = gan.discriminator_loss(
+                state, batches['real'], batches['fake'], cfg, sampler,
+                batches['real2'], batches['fake2'])
+        finally:
+            state.iteration -= 1
+        terms = sum(v for k, v in metrics.items()
+                    if k.startswith('loss_d_fake'))
+        grads = torch.autograd.grad(total, d_params, allow_unused=True,
+                                    retain_graph=True)
+        launches = counts()
+        terms_grad, = torch.autograd.grad(terms, d_params[d_layer])
+        return (float(total.detach()), norm(grads), grads[d_layer],
+                float(terms.detach()), terms_grad), launches
+
+    def rel(a, b):
+        return float((a - b).float().norm() / b.float().norm())
+
+    def errors(a, b):
+        # The step's whole loss and gradients, and (render_terms) the
+        # terms that see the kernels' output alone: G's adversarial or
+        # reconstruction loss, D's fake losses.
+        return {'loss_rel_err': abs(a[0] - b[0]) / abs(b[0]),
+                'grad_norm_rel_err': abs(a[1] - b[1]) / b[1],
+                'layer_grad_rel_err': rel(a[2], b[2]),
+                'render_terms': {
+                    'loss_rel_err': abs(a[3] - b[3]) / abs(b[3]),
+                    'layer_grad_rel_err': rel(a[4], b[4])}}
+
+    def fails(errs):
+        return (errs['loss_rel_err'] > STEP_LOSS_RTOL or
+                errs['grad_norm_rel_err'] > STEP_GRAD_RTOL or
+                errs['layer_grad_rel_err'] > STEP_GRAD_RTOL or
+                errs['render_terms']['layer_grad_rel_err'] >
+                STEP_TERMS_RTOL)
+
+    steps = [('g_step', g_step, g_launches)]
+    if d_launches is not None:
+        steps.append(('d_step', d_step, d_launches))
+    out_of_memory = {}
+    for b in batches_to_try:
+        out = {'batch': b, 'out_of_memory': out_of_memory,
+               'loss_rtol': STEP_LOSS_RTOL, 'grad_rtol': STEP_GRAD_RTOL}
+        batches = step_batches(state, cfg, split, 31, b)
+        g = batches['g']
+        with torch.no_grad():
+            mask = gan.generator_forward(
+                state.gen, g['z'], g['pose'], g.get('focal'), cfg,
+                state.rng, noise=g['noise'],
+                cond=gan.embed_condition(state.gen, cfg, g))[0].mask
+        if float(mask.max()) < 0.3:
+            raise AssertionError(f'{what}: the render sees no surface')
+        out['mask_mean'] = float(mask.mean())
+        del mask
+        try:
+            for name, fn, want in steps:
+                reset_counts()
+                kernels, launches = fn(batches, triplane_cuda.sample_triplane)
+                expect_launches(f'{what} {name}', launches, **want)
+                # The same step again: the floor of run-to-run noise.
+                repeat = errors(
+                    fn(batches, triplane_cuda.sample_triplane)[0], kernels)
+                plain = fn(batches, triplane.plain_sampler)[0]
+                errs = errors(kernels, plain)
+                if fails(errs):
+                    raise AssertionError(f'{what} {name} with the kernels '
+                                         f'differs from the plain step: '
+                                         f'{errs}')
+                wrong = {k: errors(fn(batches, sampler)[0], plain)
+                         for k, sampler in WRONG_SAMPLERS.items()}
+                if not all(map(fails, wrong.values())):
+                    raise AssertionError(f'{what} {name}: the check passes '
+                                         f'a wrong kernel: {wrong}')
+                out[name] = {'launches': launches, 'loss_kernels': kernels[0],
+                             'loss_plain': plain[0], **errs,
+                             'repeat': repeat, 'wrong_kernels': wrong}
+                del kernels, plain
+        except torch.cuda.OutOfMemoryError as e:
+            out_of_memory[b] = str(e).splitlines()[0]
+            del batches
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        return out
+    raise AssertionError(f'{what}: no batch fits: {out_of_memory}')
+
+
+def _conv_shapes(name: str, shapes) -> list:
+    """The first two input shapes of a 4-d convolution operator, else []."""
+    if 'convolution' not in name or len(shapes) < 2:
+        return []
+    return shapes[:2] if all(len(x) == 4 for x in shapes[:2]) else []
+
+
+# The path length's backward by operator: the constant resampling filter's
+# gradient (both inputs [1, C*B, H, W] at full size), the filter applied to
+# each channel (inputs [C*B, 1, H, W]), the other convolutions (the
+# modulated ones, their data and weight gradients), the rest.
+PPL_OP_GROUPS = {
+    'filter_gradient': lambda name, shapes: bool(_conv_shapes(
+        name, shapes)) and shapes[0][0] == 1 and shapes[1][0] == 1 and
+    shapes[1][-1] > 4,
+    'filter_depthwise': lambda name, shapes: bool(_conv_shapes(
+        name, shapes)) and shapes[0][1] == 1 and shapes[0][0] > 1,
+    'other_convolutions': lambda name, shapes: bool(_conv_shapes(
+        name, shapes)) and not (shapes[0][0] == 1 or shapes[0][1] == 1),
+}
+
+
+def ppl_cost(state: gan.GANTrainState, cfg: gan.GANConfig, split,
+             batch: int) -> dict:
+    """What path-length regularization adds to carla's G step at the
+    run's batch: ms (CUDA events, median of 3 after a warm-up) of the
+    loss's forward and backward (both renders, B1 and B4) and of the path
+    length's own (the synthesis differentiated twice, no kernel), and a
+    trace of the latter with its kernel time by PPL_OP_GROUPS."""
+    batches = step_batches(state, cfg, split, 33, batch)
+    params = list(state.gen.parameters())
+    g = batches['g']
+
+    def main():
+        loss, _ = gan.generator_loss(state, g, cfg, batch2=batches['g2'])
+        torch.autograd.grad(loss, params, allow_unused=True)
+
+    def path_length():
+        weighted, _, _ = gan.path_length_loss(state, g, cfg,
+                                              g['noise'].get('sg_noise'))
+        torch.autograd.grad(weighted, params, allow_unused=True)
+
+    return {'batch': batch, 'loss_ms': time_cuda(main, 3, 1),
+            'ppl_ms': time_cuda(path_length, 3, 1),
+            'ppl_trace': trace(path_length, PPL_OP_GROUPS)}
+
+
+def nofine_step_check(gen: Generator, lpips: LPIPS) -> dict:
+    """One inversion step at fine_sampling=False, ray_multiplier 4 (one
+    pass of 256 stratified samples a ray, no PDF draw) through B1, B2 and
+    B3 against the same step on the plain versions: the loss within
+    STEP_LOSS_RTOL, the gradients of z and R within STEP_GRAD_RTOL; the
+    step's launches and ms."""
+    cfg = dataclasses.replace(INV_CFG, fine_sampling=False)
+    target, _, gt_cam, init = inversion_problem(gen)
+    dev = target.device
+    tform = augment.sample_transform(
+        torch.Generator(device=dev).manual_seed(32),
+        BATCH * cfg.num_augmentations, 1.0)
+    step = inv.make_inversion_step(gen, lpips, cfg, gt_cam)
+    plain_step = inv.make_inversion_step(gen, lpips, cfg, gt_cam,
+                                         sampler=triplane.plain_sampler,
+                                         warp=warp.warp_plain)
+
+    def loss_and_grads(step_fn):
+        p = init.copy(requires_grad=True)
+        m = step_fn(p, inv.make_optimizer(p, cfg), target, tform=tform)
+        return float(m['loss']), p.z.grad, p.R.grad
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    k_loss, k_gz, k_gr = loss_and_grads(step)
+    launches = counts()
+    expect_launches('non-fine inversion step', launches,
+                    **{triplane_cuda.KERNEL: 1, triplane_cuda.GRAD_KERNEL: 1,
+                       'warp_forward': 2, 'warp_backward': 1})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    p_loss, p_gz, p_gr = loss_and_grads(plain_step)
+    errs = {'loss_rel_err': abs(k_loss - p_loss) / abs(p_loss),
+            'grad_z_rel_err': float((k_gz - p_gz).norm() / p_gz.norm()),
+            'grad_R_rel_err': float((k_gr - p_gr).norm() / p_gr.norm())}
+    if (errs['loss_rel_err'] > STEP_LOSS_RTOL or
+            errs['grad_z_rel_err'] > STEP_GRAD_RTOL or
+            errs['grad_R_rel_err'] > STEP_GRAD_RTOL):
+        raise AssertionError(f'non-fine step with the kernels differs from '
+                             f'the plain step: {errs}')
+    params = init.copy(requires_grad=True)
+    optimizer = inv.make_optimizer(params, cfg)
+    step_ms = time_cuda(lambda: step(params, optimizer, target, tform=tform),
+                        3, warmup=1)
+    return {'samples_per_ray': cfg.depth_samples_per_ray *
+            cfg.ray_multiplier, 'batch': BATCH, 'launches': launches,
+            'step_ms': step_ms, 'peak_gb': peak_gb, 'loss_kernels': k_loss,
+            'loss_plain': p_loss, **errs}
+
+
+def flag_modes_phase(assets: dict, data: dict, rows: dict,
+                     gen: Generator, lpips: LPIPS) -> None:
+    """GAN training's flag-only modes through `cli.run.main` at full width
+    (FLAG_MODES), each resumed from a reference-format checkpoint of its
+    configuration at the first batch of FLAG_BATCHES that fits; launches
+    and ms (CUDA events) around every G step, D step and evaluation, and
+    the peak memory. Then the carla run's G and D steps against the plain
+    sampler, and one non-fine inversion step."""
+    started = time.perf_counter()
+    base = os.path.join(os.path.dirname(assets['root']), 'flag_modes')
+    os.makedirs(os.path.join(base, 'weights'))
+    for name in weights.LPIPS_FILES:  # no Inception file: a random one
+        os.symlink(os.path.join(assets['root'], 'weights', name),
+                   os.path.join(base, 'weights', name))
+    paths = {'carla': data['carla'], 'cub': data['cub'],
+             'p3d_car': assets['data']}
+    paths.update({mode: paths[dataset]
+                  for mode, (dataset, _) in FLAG_MODES.items()})
+    calls = []
+    seen = {}
+    originals = (gan.g_step, gan.d_step, train_eval.GANEvaluator.evaluate,
+                 loop.train_gan)
+    gan.g_step = counted_calls(calls, 'g', originals[0])
+    gan.d_step = counted_calls(calls, 'd', originals[1])
+    train_eval.GANEvaluator.evaluate = counted_calls(calls, 'evaluate',
+                                                     originals[2])
+
+    def train_gan(state, cfg, split, num_iters, **kwargs):
+        seen['split'] = split
+        return originals[3](state, cfg, split,
+                            state.iteration + seen['iters'], **kwargs)
+
+    loop.train_gan = train_gan
+    results = {}
+    try:
+        for mode, (dataset, flags) in FLAG_MODES.items():
+            args = port_config.parse_args(
+                ['--dataset', dataset, '--data_path', paths[mode]] +
+                flags)
+            port_config.override_default_args(args)
+            split = loaders.load_dataset(args)[1]
+            t = time.perf_counter()
+            gan_path = os.path.join(base, f'gan_{mode}.pth')
+            cfg = dataset_gan_checkpoint(dataset, gan_path, flags,
+                                         FLAG_RESUME[mode],
+                                         split.num_classes)
+            assets_s = time.perf_counter() - t
+            seen['iters'] = FLAG_ITERS[mode]
+            tried = {}
+            for batch in FLAG_BATCHES:
+                calls.clear()
+                reset_counts()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                try:
+                    out = cli_run.main(
+                        ['--dataset', dataset, '--resume_from', gan_path,
+                         '--root_path', base, '--data_path', paths[mode],
+                         '--batch_size', str(batch)] + flags)
+                except torch.cuda.OutOfMemoryError as e:
+                    tried[batch] = (f'out of memory after '
+                                    f'{time.perf_counter() - t0:.1f} s: '
+                                    f'{str(e).splitlines()[0]}')
+                    calls.clear()
+                    gc.collect()
+                    continue
+                torch.cuda.synchronize()
+                break
+            else:
+                raise AssertionError(f'{mode}: no batch fits: {tried}')
+            results[mode] = {
+                'cfg': cfg, 'batch': batch, 'out_of_memory': tried,
+                'wall_s': time.perf_counter() - t0, 'assets_s': assets_s,
+                'peak_gb': torch.cuda.max_memory_allocated() / 1e9,
+                'calls': list(calls), 'total': counts(), 'out': out,
+                'poses_moved': bool(np.any(
+                    seen['split'].tform_cam2world != split.tform_cam2world))}
+            if mode != 'carla':
+                del out
+                results[mode]['out'] = None
+                torch.cuda.empty_cache()
+    finally:
+        (gan.g_step, gan.d_step, train_eval.GANEvaluator.evaluate,
+         loop.train_gan) = originals
+
+    summary = {}
+    for mode, res in results.items():
+        renders_g, renders_d = FLAG_RENDERS[mode]
+        want = {'g': {triplane_cuda.KERNEL: 2 * renders_g,
+                      triplane_cuda.GRAD_PLANES_KERNEL: 2 * renders_g},
+                'd': {triplane_cuda.KERNEL: 2 * renders_d},
+                'evaluate': FLAG_EVAL}
+        kinds = ['g', 'd'] * (FLAG_ITERS[mode] // 2) + (
+            ['evaluate'] if mode == 'carla' else [])
+        got = [c[0] for c in res['calls']]
+        if got != kinds:
+            raise AssertionError(f'{mode} flag-mode calls: {got}')
+        for what, _, launched in res['calls']:
+            expect_launches(f'{mode} {what}', launched, **want[what])
+        summary[mode] = {
+            'dataset': FLAG_MODES[mode][0], 'flags': FLAG_MODES[mode][1],
+            'batch': res['batch'], 'out_of_memory': res['out_of_memory'],
+            'resumed_at': FLAG_RESUME[mode], 'assets_s': res['assets_s'],
+            'wall_s': res['wall_s'], 'peak_gb': res['peak_gb'],
+            'g_ms': [c[1] for c in res['calls'] if c[0] == 'g'],
+            'd_ms': [c[1] for c in res['calls'] if c[0] == 'd'],
+            'evaluate_ms': [c[1] for c in res['calls']
+                            if c[0] == 'evaluate'],
+            'launches': [(c[0], c[2]) for c in res['calls']],
+            'poses_moved': res['poses_moved']}
+    if not summary['p3d_car']['poses_moved'] or any(
+            summary[mode]['poses_moved'] for mode in summary
+            if mode != 'p3d_car'):
+        raise AssertionError('--perturb_poses moved the wrong poses')
+    carla = results['carla']['out']
+    state = carla['state']
+    evaluator = carla['evaluator']
+    logged = {(s['tag'], s['step']): s['value'] for s in map(
+        json.loads, open(os.path.join(carla['log_dir'], 'scalars.jsonl')))}
+    end = FLAG_RESUME['carla'] + FLAG_ITERS['carla'] - 1
+    recon = {tag: v for (tag, step), v in logged.items()
+             if step == end and tag.startswith('reconstruction/')}
+    for tag in ('reconstruction/psnr_front', 'reconstruction/ssim_front',
+                'reconstruction/lpips_front', 'reconstruction/fid_frontview',
+                'reconstruction/fid_randomview'):
+        if not np.isfinite(recon.get(tag, np.nan)):
+            raise AssertionError(f'carla evaluation: {tag} {recon.get(tag)}')
+    if not state.ppl_running_avg > 0 or state.disc2 is None:
+        raise AssertionError('carla: no path length or no second D')
+    summary['carla'].update(reconstruction=recon,
+                            ppl_running_avg=state.ppl_running_avg,
+                            eval_seconds=evaluator.times)
+    args = port_config.parse_args(['--dataset', 'carla', '--data_path',
+                                   paths['carla']])
+    split = loaders.load_dataset(args)[1]
+    batch = results['carla']['batch']
+    summary['carla']['step_checks'] = gan_step_check(
+        'carla flag', state, results['carla']['cfg'], split,
+        [b for b in FLAG_BATCHES if b <= batch],
+        {triplane_cuda.KERNEL: 4, triplane_cuda.GRAD_PLANES_KERNEL: 4},
+        {triplane_cuda.KERNEL: 4})
+    summary['carla']['ppl_cost'] = ppl_cost(
+        state, results['carla']['cfg'], split, results['carla']['batch'])
+    del carla, state, evaluator
+    results.clear()
+    torch.cuda.empty_cache()
+    summary['nofine_inversion_step'] = nofine_step_check(gen, lpips)
+    for name in (triplane_cuda.KERNEL, triplane_cuda.GRAD_PLANES_KERNEL,
+                 triplane_cuda.GRAD_KERNEL, triplane_cuda.FUSED_KERNEL):
+        rows[name]['flag_modes_launches'] = {
+            mode: [(k, launched.get(name, 0)) for k, launched in
+                   summary[mode]['launches']]
+            for mode in FLAG_MODES}
+        rows[name]['flag_modes_launches']['nofine_inversion_step'] = \
+            summary['nofine_inversion_step']['launches'].get(name, 0)
+    emit('flag_modes', started, **summary)
 
 
 def train_normals_check(gen: Generator, evaluator) -> dict:
@@ -3352,7 +3828,9 @@ def main() -> None:
         torch.cuda.empty_cache()
         demo_phase(assets)
         torch.cuda.empty_cache()
-        datasets_phase(assets, lpips)
+        dataset_dirs = datasets_phase(assets, lpips)
+        torch.cuda.empty_cache()
+        flag_modes_phase(assets, dataset_dirs, rows, inv_gen, lpips)
     torch.cuda.empty_cache()
     train_steps = train_phase(rows)
     torch.cuda.empty_cache()

@@ -304,6 +304,7 @@ def run_inversion_cli(args, gan_cfg, dataset_config, gen, train_split,
     inv_cfg = inv_opt.InversionConfig(
         resolution=args.resolution,
         depth_samples_per_ray=config_lib.depth_samples(args),
+        fine_sampling=args.fine_sampling,
         scene_range=dataset_config['scene_range'],
         white_background=dataset_config['white_background'],
         camera_flipped=dataset_config['camera_flipped'],

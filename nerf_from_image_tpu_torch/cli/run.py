@@ -36,24 +36,33 @@ novel view] to `outputs/sample_<dataset>_<steps>it.png`;
 installed, the alpha channel, GrabCut or the full frame, `cli/demo.py`)
 at batch 1 and writes `outputs/demo_manual_<dataset>_<steps>it.png`.
 Every dataset's generator runs: StyleGAN noise (cub, imagenet_elephant),
-orthographic cameras (cub) and the view-direction mapper (carla).
+orthographic cameras (cub) and the view-direction mapper (carla). So do
+GAN training's flag-only modes: --use_encoder (G and D conditioned on
+the training image; the evaluator's reconstruction metrics with LPIPS,
+and the test split's where the dataset has one), --use_class (cub's
+class labels; the classes counted in the train split),
+--dual_discriminator (with --dual_discriminator_l1/_mse, a
+reconstruction loss in D1's place), --path_length_regularization,
+--attention_values 0 (no palette) and --perturb_poses (the training
+poses moved to neighbours at load, the train-eval split's with them when
+the two splits hold the same views).
 
 It runs on the card (`main(argv, device='cpu')` on the CPU, as the tests
 call it). Not ported yet, and refused with NotImplementedError before any
-work, each naming its item of ROADMAP queue A: more than one device and
---profile_trace_at, and GAN training's flag-only modes (encoder or class
-conditioning, dual discriminators, path-length regularization,
-attention_values 0, --perturb_poses).
+work, naming its item of ROADMAP queue A (several cards): more than one
+device (--mesh_shape, --multihost) and --profile_trace_at.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 import torch
 
 from nerf_from_image_tpu_torch import config as config_lib
+from nerf_from_image_tpu_torch.core import pose as pose_lib
 from nerf_from_image_tpu_torch.data import loaders
 from nerf_from_image_tpu_torch.device import DeviceLike, resolve_device
 from nerf_from_image_tpu_torch.train import gan as gan_lib
@@ -66,7 +75,6 @@ from nerf_from_image_tpu_torch.utils import weights as weights_lib
 from nerf_from_image_tpu_torch.utils.logging import SummaryWriter
 
 
-FLAG_MODES = "GAN training's flag-only modes"
 # A run's own latest checkpoint resumes it only from this iteration on.
 AUTO_RESUME_MIN_ITERATION = 12500
 
@@ -82,23 +90,16 @@ def check_ported(args) -> None:
     config_lib.check_single_device(args)
     if not args.run_inversion and args.profile_trace_at > 0:
         refuse('--profile_trace_at (utils/profiling)', 'several cards')
-    if args.perturb_poses > 0:
-        refuse('--perturb_poses', FLAG_MODES)
-    if args.use_encoder or args.use_class:
-        refuse('encoder or class conditioning', FLAG_MODES)
-    if (args.dual_discriminator or args.dual_discriminator_l1 or
-            args.dual_discriminator_mse):
-        refuse('dual discriminators', FLAG_MODES)
-    if args.path_length_regularization:
-        refuse('path-length regularization', FLAG_MODES)
-    if args.attention_values <= 0:
-        refuse('attention_values 0', FLAG_MODES)
 
 
-def make_gan_config(args, dataset_config: dict) -> gan_lib.GANConfig:
+def make_gan_config(args, dataset_config: dict,
+                    num_classes: Optional[int] = None) -> gan_lib.GANConfig:
+    """The GAN's configuration from the flags (after the dataset's
+    overrides); `num_classes` is the train split's, for --use_class."""
     return gan_lib.GANConfig(
         resolution=args.resolution, latent_dim=args.latent_dim,
         depth_samples_per_ray=config_lib.depth_samples(args),
+        fine_sampling=args.fine_sampling,
         scene_range=dataset_config['scene_range'],
         white_background=dataset_config['white_background'],
         camera_flipped=dataset_config['camera_flipped'],
@@ -113,7 +114,10 @@ def make_gan_config(args, dataset_config: dict) -> gan_lib.GANConfig:
         plane_resolution=args.plane_resolution,
         path_length_regularization=args.path_length_regularization,
         dual_discriminator=args.dual_discriminator,
+        dual_discriminator_l1=args.dual_discriminator_l1,
+        dual_discriminator_mse=args.dual_discriminator_mse,
         use_encoder=args.use_encoder, use_class=args.use_class,
+        num_classes=num_classes if args.use_class else None,
         use_viewdir=args.use_viewdir,
         use_stylegan_noise=not args.disable_stylegan_noise)
 
@@ -158,13 +162,17 @@ def main(argv=None, device: DeviceLike = None):
     print('Loading data...')
     dataset_config, train_split, train_eval_split, test_split = \
         loaders.load_dataset(args, manual_image)
+    if args.perturb_poses > 0:
+        perturb_training_poses(args.perturb_poses, train_split,
+                               train_eval_split)
 
-    cfg = make_gan_config(args, dataset_config)
+    cfg = make_gan_config(args, dataset_config, train_split.num_classes)
     if not args.run_inversion:
         dtype = (torch.bfloat16 if args.compute_dtype == 'bfloat16' else
                  torch.float32)
         return run_training(args, cfg, dataset_config, train_split,
-                            train_eval_split, experiment_name, dtype, device)
+                            train_eval_split, experiment_name, dtype, device,
+                            test_split)
 
     # The inversion's generator is float32 whatever --compute_dtype says.
     gen, _ = gan_lib.make_models(cfg, torch.float32, device)
@@ -186,9 +194,27 @@ def main(argv=None, device: DeviceLike = None):
                              experiment_name, device)
 
 
+def perturb_training_poses(avg_angle: float, train_split,
+                           train_eval_split) -> None:
+    """--perturb_poses: each training pose (with its focal length and
+    bbox) replaced by a neighbour's at about `avg_angle` degrees
+    (`core.pose.perturb_poses`, seed 1234); the train-eval split takes
+    the same poses when it holds as many."""
+    (train_split.tform_cam2world, train_split.focal_length,
+     train_split.bbox) = pose_lib.perturb_poses(
+        train_split.tform_cam2world, avg_angle, train_split.focal_length,
+        train_split.bbox)
+    if (train_eval_split.tform_cam2world.shape ==
+            train_split.tform_cam2world.shape):
+        train_eval_split.tform_cam2world = train_split.tform_cam2world
+        train_eval_split.focal_length = train_split.focal_length
+        train_eval_split.bbox = train_split.bbox
+
+
 def run_training(args, cfg: gan_lib.GANConfig, dataset_config: dict,
                  train_split, train_eval_split, experiment_name: str,
-                 dtype: torch.dtype, device: torch.device) -> dict:
+                 dtype: torch.dtype, device: torch.device,
+                 test_split=None) -> dict:
     """GAN training: resume or pretrain, the loop with its evaluator, and a
     final `latest`. Returns {'state', 'evaluator', 'checkpoint_dir',
     'log_dir', 'pretrained'}."""
@@ -232,9 +258,13 @@ def run_training(args, cfg: gan_lib.GANConfig, dataset_config: dict,
     writer = SummaryWriter(log_dir)
     inception = weights_lib.load_inception(args.root_path, device,
                                            random_if_missing=True)
+    # The encoder mode's reconstruction metric.
+    lpips = (weights_lib.load_lpips(args.root_path, device)
+             if args.use_encoder else None)
     evaluator = GANEvaluator(
         cfg, dataset_config, args.dataset, train_split, train_eval_split,
-        inception=inception, use_encoder=args.use_encoder,
+        test_split, inception=inception, lpips=lpips,
+        use_encoder=args.use_encoder,
         use_class=args.use_class, eval_batch_size=min(args.batch_size, 8),
         stats_cache_dir=os.path.join(args.root_path, 'fid_stats'),
         device=device)

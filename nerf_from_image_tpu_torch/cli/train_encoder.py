@@ -51,6 +51,7 @@ def train_coord_regressor(args, gan_cfg, gen, train_split,
     cfg = enc_lib.EncoderConfig(
         resolution=args.resolution, latent_dim=args.latent_dim,
         depth_samples_per_ray=config_lib.depth_samples(args),
+        fine_sampling=args.fine_sampling,
         scene_range=gan_cfg.scene_range,
         white_background=gan_cfg.white_background)
     state = enc_lib.init_train_state(encoder, seed=99)

@@ -41,11 +41,15 @@ def composite(sigma: torch.Tensor, rgb: torch.Tensor,
               ray_directions: torch.Tensor, depth_values: torch.Tensor,
               normals: Optional[torch.Tensor] = None,
               semantics: Optional[torch.Tensor] = None,
-              white_background: bool = True
+              white_background: bool = True,
+              samples_sorted: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                          Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Composites sigma/rgb (and optional per-sample normals and
-    semantics) along rays, samples in any per-ray order.
+    semantics) along rays, samples in any per-ray order, or, with
+    `samples_sorted`, in ascending depth already (one stratified pass),
+    which skips the sort, as the JAX package's `samples_sorted` skips its
+    pairwise form.
 
     Args:
       sigma: (..., S), rgb: (..., S, C), depth_values: (..., S),
@@ -61,10 +65,12 @@ def composite(sigma: torch.Tensor, rgb: torch.Tensor,
     """
     sigma = sigma.float()
     rgb = rgb.float()
-    depth_values, order = torch.sort(depth_values.float(), dim=-1,
-                                     stable=True)
-    sigma = torch.gather(sigma, -1, order)
-    rgb = torch.take_along_dim(rgb, order[..., None], dim=-2)
+    depth_values = depth_values.float()
+    order = None
+    if not samples_sorted:
+        depth_values, order = torch.sort(depth_values, dim=-1, stable=True)
+        sigma = torch.gather(sigma, -1, order)
+        rgb = torch.take_along_dim(rgb, order[..., None], dim=-2)
     weights = compute_weights(sigma, ray_directions.float(), depth_values)
 
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
@@ -75,8 +81,9 @@ def composite(sigma: torch.Tensor, rgb: torch.Tensor,
     def per_sample_map(values, w):
         if values is None:
             return None
-        values = torch.take_along_dim(values.float(), order[..., None],
-                                      dim=-2)
+        values = values.float()
+        if order is not None:
+            values = torch.take_along_dim(values, order[..., None], dim=-2)
         return torch.sum(w[..., None] * values, dim=-2)
 
     normal_map = per_sample_map(normals, weights_sg)

@@ -4,8 +4,9 @@
 cam2world <-> world2cam inversion with a scale carried in entry [3, 3],
 quaternion -> rotation matrix, the (z0, t2, s, q) pose parameterization of
 the inversion optimizer and its inverse, the discriminator's 13-D pose
-conditioning, and the geodesic rotation distance. Differentiable where the reference is; `matrix_to_quaternion`
-is host-side numpy.
+conditioning, the geodesic rotation distance and `perturb_poses` (the
+training CLI's --perturb_poses). Differentiable where the reference is;
+`matrix_to_quaternion` and `perturb_poses` are host-side numpy.
 """
 
 from __future__ import annotations
@@ -166,3 +167,31 @@ def rotation_matrix_distance(p: torch.Tensor,
     trace = pqt[..., 0, 0] + pqt[..., 1, 1] + pqt[..., 2, 2]
     cos_d = torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0)
     return torch.arccos(cos_d) / np.pi * 180.0
+
+
+# Rows of the pose distance matrix computed at once by `perturb_poses`.
+PERTURB_CHUNK = 1024
+
+
+def perturb_poses(cam2world: np.ndarray, avg_angle: float, *extra_args,
+                  seed: int = 1234):
+    """Replaces each pose by the pose of the set whose rotation lies
+    closest to U(0, 2 * avg_angle) degrees from it (host numpy, seeded):
+    the distribution of poses is kept, each one moved to a neighbour.
+    Returns (cam2world, *extra_args), each indexed the same way (None
+    stays None)."""
+    chunk = PERTURB_CHUNK
+    rng = np.random.RandomState(seed)
+    mats = np.asarray(cam2world)
+    all_mats = torch.from_numpy(np.ascontiguousarray(mats))[None]
+    indices = []
+    for start in range(0, mats.shape[0], chunk):
+        rows = torch.from_numpy(np.ascontiguousarray(
+            mats[start:start + chunk]))[:, None]
+        for row in rotation_matrix_distance(rows, all_mats).numpy():
+            target = rng.rand() * avg_angle * 2.0
+            indices.append(int(np.abs(row - target).argmin()))
+    indices = np.asarray(indices)
+    return (mats[indices].copy(),
+            *[None if a is None else np.asarray(a)[indices].copy()
+              for a in extra_args])

@@ -66,6 +66,7 @@ class InversionConfig:
     """Static inversion configuration."""
     resolution: int = 128
     depth_samples_per_ray: int = 64
+    fine_sampling: bool = True
     scene_range: float = 0.55
     white_background: bool = True
     camera_flipped: bool = False
@@ -74,6 +75,12 @@ class InversionConfig:
     num_augmentations: int = 15
     optimize_pose: bool = True
     lr: float = 2e-3
+
+    @property
+    def ray_multiplier(self) -> int:
+        """Without fine sampling the render takes depth_samples_per_ray x
+        4 stratified samples a ray, as the reference's CLI sets."""
+        return 1 if self.fine_sampling else 4
 
 
 def make_camera(params: InversionParams, camera_flipped: bool
@@ -118,9 +125,10 @@ def render_from_params(gen: Generator, params: InversionParams,
     state = gen.synthesize(ws, noise=noise)
     out = render(gen.field(state, sampler), cfg.resolution, cfg.resolution,
                  cam, focal, cfg.scene_range, cfg.white_background,
-                 cfg.depth_samples_per_ray, render_rng, center, bbox,
-                 compute_normals=compute_normals,
-                 compute_semantics=compute_semantics)
+                 cfg.depth_samples_per_ray * cfg.ray_multiplier, render_rng,
+                 center, bbox, compute_normals=compute_normals,
+                 compute_semantics=compute_semantics,
+                 fine_sampling=cfg.fine_sampling)
     return out, cam, focal
 
 

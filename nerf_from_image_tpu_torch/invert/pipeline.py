@@ -245,8 +245,10 @@ def evaluate_checkpoint(ctx: EvalContext, cfg: inv_opt.InversionConfig,
     state = gen.synthesize(ws)
     out_r = render(gen.field(state), cfg.resolution, cfg.resolution,
                    perm_cam, perm_focal, cfg.scene_range,
-                   cfg.white_background, cfg.depth_samples_per_ray,
-                   center=perm_center, bbox=perm_bbox)
+                   cfg.white_background,
+                   cfg.depth_samples_per_ray * cfg.ray_multiplier,
+                   center=perm_center, bbox=perm_bbox,
+                   fine_sampling=cfg.fine_sampling)
     if target_img_random is not None:
         for k, v in _front_metrics(ctx, out_r.rgb, out_r.mask,
                                    target_img_random, False,

@@ -15,8 +15,12 @@ the view-direction mapper (`use_viewdir`: carla), the SDF regularizers of
 GAN training (eikonal, total variation, entropy) and the distance loss of
 SDF pretraining, and as per-point outputs the normals and the palette
 probabilities (the GAN evaluation's images) and the world points (the
-encoder distillation's coordinate render). The encoder and the class
-embedding wait for a later slice.
+encoder distillation's coordinate render). The flag-only modes of GAN
+training are here too: the image encoder (`use_encoder`, `emb`, a
+`ResidualEncoder` with instance norm) and the class embedding
+(`num_classes`, `class_embedding`), whose 512-wide output conditions the
+mapping, and `attention_values` 0, where the decoder emits the colour
+itself (3 channels through the wide sigmoid) and there is no palette.
 """
 
 from __future__ import annotations
@@ -97,6 +101,69 @@ class ConditionalLayerNorm(nn.Module):
             beta = beta[..., None, :]
             gamma = gamma[..., None, :]
         return beta + (1.0 + gamma) * x
+
+
+class ResidualEncoder(nn.Module):
+    """Image (B, 3, H, W) -> 512-wide embedding: ten equalized convs in
+    three residual stages, four 2x2 average pools, a spatial mean. With
+    `use_instance_norm` (the generator's, `emb`) the middle convs lose
+    their bias and an affine instance norm follows each of them; without
+    it (the discriminator's) they keep it."""
+
+    def __init__(self, use_instance_norm: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.use_instance_norm = use_instance_norm
+        self.dtype = dtype
+        mid_bias = not use_instance_norm
+        layers = [('conv1', 3, 64, 3, True), ('conv2', 64, 128, 3, True),
+                  ('conv3', 128, 128, 3, mid_bias),
+                  ('conv4', 128, 128, 3, mid_bias),
+                  ('conv5', 128, 256, 3, mid_bias),
+                  ('conv6', 256, 256, 3, mid_bias),
+                  ('shortcut', 128, 256, 1, False),
+                  ('conv7', 256, 256, 3, mid_bias),
+                  ('conv8', 256, 256, 3, mid_bias),
+                  ('conv9', 256, 512, 3, True),
+                  ('conv10', 512, 512, 3, True)]
+        for name, cin, cout, k, bias in layers:
+            setattr(self, name, stylegan.EqualizedConv2d(
+                cin, cout, k, bias=bias, dtype=dtype, generator=generator))
+            if use_instance_norm and name[4:].isdigit() and (
+                    3 <= int(name[4:]) <= 8):
+                setattr(self, f'norm{name[4:]}',
+                        nn.InstanceNorm2d(cout, affine=True))
+
+    def _norm(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        if not self.use_instance_norm:
+            return x
+        norm = getattr(self, f'norm{i}')
+        return F.instance_norm(x, weight=norm.weight.to(x.dtype),
+                               bias=norm.bias.to(x.dtype), eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # Four stride-2 pools: below 16 pixels the final mean has nothing
+        # to average.
+        if x.shape[2] < 16 or x.shape[3] < 16:
+            raise ValueError(f'ResidualEncoder needs input resolution >= 16,'
+                             f' got {x.shape[2]}x{x.shape[3]}')
+        scale = math.sqrt(2.0) / 2.0
+
+        def act(v):
+            return F.leaky_relu(v, 0.2)
+
+        def block(v, i):
+            return act(self._norm(getattr(self, f'conv{i}')(v), i))
+
+        x = act(self.conv2(act(self.conv1(x.to(self.dtype)))))
+        x = F.avg_pool2d(x, 2)
+        x = F.avg_pool2d(block(block(x, 3), 4) + x, 2) * scale
+        s = self.shortcut(x)
+        x = F.avg_pool2d(block(block(x, 5), 6) + s, 2) * scale
+        x = F.avg_pool2d(block(block(x, 7), 8) + x, 2) * scale
+        x = act(self.conv10(act(self.conv9(x))))
+        return x.mean(dim=(2, 3))
 
 
 class AttentionMapper(nn.Module):
@@ -224,7 +291,7 @@ class GeneratorState:
     """What `synthesize` hands to `sample`."""
     planes: torch.Tensor  # (B, 3, 32, R, R), the JAX package's layout
     planes_cl: torch.Tensor  # (B, 3, R, R, 32) channel-last, for sampling
-    attention_values: torch.Tensor  # (B, K, 3)
+    attention_values: Optional[torch.Tensor]  # (B, K, 3); None for K = 0
     # With `fuse_decode`: (w0, b0, w1, b1, palette) in the fused call's
     # types, built once per `synthesize` rather than on every pass.
     fused_tail: Optional[Tuple[torch.Tensor, ...]] = None
@@ -264,43 +331,77 @@ class Generator(nn.Module):
                  channel_max: int = 512, dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None, seed: int = 0,
                  use_viewdir: bool = False,
-                 use_stylegan_noise: bool = False):
+                 use_stylegan_noise: bool = False,
+                 use_encoder: bool = False,
+                 num_classes: Optional[int] = None):
         super().__init__()
         self.fuse_decode = False
         self.use_viewdir = use_viewdir
         self.use_stylegan_noise = use_stylegan_noise
+        self.use_encoder = use_encoder
+        self.num_classes = num_classes
+        self.attention_values = attention_values
         device = resolve_device(device)
-        if attention_values < 1:
-            raise NotImplementedError('the port needs attention_values >= 1')
         gen = torch.Generator().manual_seed(seed)
         w_dim = 512
+        # The conditioning vector: an image's embedding or a class's, both
+        # 512 wide, concatenated to the normalized latent unnormalized.
+        c_dim = w_dim if (use_encoder or num_classes) else 0
         self.scene_range = scene_range
         self.latent_dim = latent_dim
         self.dtype = dtype
-        self.num_ws = 15  # 14 for synthesis, the last for the palette
+        # 14 ws for synthesis, and with a palette a 15th for it.
+        self.num_ws = 14 + (1 if attention_values > 0 else 0)
         self.mapping_network = nn.ModuleDict({
             'backbone': stylegan.MappingNetwork(
                 latent_dim, w_dim, self.num_ws, num_layers=2,
-                lr_multiplier=0.01, dtype=dtype, generator=gen)})
+                lr_multiplier=0.01, c_dim=c_dim, dtype=dtype,
+                generator=gen)})
         self.synthesis_network = stylegan.SynthesisNetwork(
             w_dim, img_resolution, 3 * PLANE_CHANNELS,
             channel_base=channel_base, channel_max=channel_max, dtype=dtype,
             generator=gen)
+        colours = attention_values if attention_values > 0 else 3
         self.decoder = TriplanarDecoder(
-            PLANE_CHANNELS, PLANE_CHANNELS if use_viewdir else
-            attention_values, dtype=dtype, generator=gen)
+            PLANE_CHANNELS, PLANE_CHANNELS if use_viewdir else colours,
+            dtype=dtype, generator=gen)
         if use_viewdir:
             self.viewdir_mapper = ViewDirectionMapper(
-                attention_values, PLANE_CHANNELS, dtype=dtype,
-                generator=gen)
+                colours, PLANE_CHANNELS, dtype=dtype, generator=gen)
         self.beta = nn.Parameter(torch.tensor([0.1]))
         self.alpha = nn.Parameter(torch.tensor([1.0]))
-        self.texture_mapper = AttentionMapper(attention_values, w_dim,
-                                              dtype=dtype, generator=gen)
+        if attention_values > 0:
+            self.texture_mapper = AttentionMapper(attention_values, w_dim,
+                                                  dtype=dtype, generator=gen)
+        if use_encoder:
+            self.emb = ResidualEncoder(use_instance_norm=True, dtype=dtype,
+                                       generator=gen)
+        if num_classes:
+            self.class_embedding = nn.Embedding(num_classes, w_dim)
+            with torch.no_grad():
+                self.class_embedding.weight.copy_(torch.randn(
+                    (num_classes, w_dim), generator=gen))
         self.to(device)
 
-    def map(self, z: torch.Tensor) -> torch.Tensor:
-        return self.mapping_network['backbone'](z)
+    def map(self, z: torch.Tensor,
+            c: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """z (B, latent) and, for a conditional generator, the embedding c
+        (B, 512) of `embed_image` or `embed_class` -> ws (B, num_ws,
+        512). A conditional mapping raises without c, as the JAX
+        package's does."""
+        backbone = self.mapping_network['backbone']
+        if backbone.c_dim and c is None:
+            raise ValueError('this generator maps z with a conditioning '
+                             'embedding c (use_encoder or num_classes)')
+        return backbone(z, c)
+
+    def embed_image(self, img: torch.Tensor) -> torch.Tensor:
+        """Images (B, 3, H, W) in [-1, 1], H, W >= 16 -> (B, 512)."""
+        return self.emb(img)
+
+    def embed_class(self, labels: torch.Tensor) -> torch.Tensor:
+        """Class labels (B,) -> (B, 512)."""
+        return self.class_embedding(labels.long())
 
     def average_w(self, generator: torch.Generator,
                   n_samples: int = 10000) -> torch.Tensor:
@@ -314,8 +415,10 @@ class Generator(nn.Module):
     @property
     def fuses(self) -> bool:
         """Whether `sample` runs the fused call: `fuse_decode` on a
-        generator without view directions."""
-        return self.fuse_decode and not self.use_viewdir
+        generator with a palette and without view directions, as the JAX
+        package's gate has it."""
+        return (self.fuse_decode and not self.use_viewdir and
+                self.attention_values > 0)
 
     def noise_mode(self, noise: Optional[stylegan.NoiseSource]) -> str:
         """The noise policy: 'none' for a model built without noise, else
@@ -354,11 +457,15 @@ class Generator(nn.Module):
     def synthesize(self, ws: torch.Tensor,
                    noise: Optional[stylegan.NoiseSource] = None
                    ) -> GeneratorState:
-        """ws (B, 15, 512) -> the state `sample` reads. `noise`: a
+        """ws (B, num_ws, 512) -> the state `sample` reads. `noise`: a
         `torch.Generator` or per-layer values for the 'random' mode (see
-        `noise_mode`)."""
-        att = self.texture_mapper(ws[:, 14])
-        planes = self.synthesize_planes(ws[:, :14], noise)
+        `noise_mode`). The 15th w makes the palette; without one
+        (attention_values 0) all ws go to the synthesis."""
+        att = None
+        if self.attention_values > 0:
+            att = self.texture_mapper(ws[:, 14])
+            ws = ws[:, :14]
+        planes = self.synthesize_planes(ws, noise)
         fused_tail = None
         if self.fuses:
             w0, b0, w1, b1 = self.fused_decode_weights()
@@ -406,7 +513,7 @@ class Generator(nn.Module):
         a gradient-free render and detached: on the card the default
         sampler's forward B1, then B2's coordinate gradient; undefined
         outside the box, as in the JAX package), semantics (B, N, K) (the
-        palette softmax), coords (B, N, 3) (the world points themselves),
+        palette softmax; none without a palette), coords (B, N, 3) (the world points themselves),
         and overflow_resid, a 0
         int32 scalar (the JAX package's windowed-sampler overflow count,
         which a direct gather never has).
@@ -415,6 +522,9 @@ class Generator(nn.Module):
                                    'coords'}
         if unknown:
             raise NotImplementedError(f'requests not ported yet: {unknown}')
+        if 'semantics' in requests and self.attention_values == 0:
+            raise ValueError('a generator without a palette '
+                             '(attention_values 0) has no semantics')
         bs = x_in.shape[0]
         x = x_in.reshape(bs, -1, 3) / self.scene_range
         oob = (x.abs() > 1.0).any(dim=-1).to(x.dtype)
@@ -460,6 +570,12 @@ class Generator(nn.Module):
             features = dec['features']
             if self.use_viewdir:
                 features = self._apply_viewdirs(features, viewdirs, x_in)
+            if self.attention_values == 0:
+                # No palette: the decoder's 3 channels are the colour, and
+                # there are no semantics.
+                if 'rgb' in requests:
+                    outputs['rgb'] = wide_sigmoid_rescaled(features)
+                return outputs
             probs = torch.softmax(features, dim=-1)
             if 'semantics' in requests:
                 outputs['semantics'] = probs

@@ -1,5 +1,6 @@
-"""Volume renderer: rays -> coarse pass -> PDF resampling -> fine pass ->
-composite (PyTorch port of `nerf_from_image_tpu/render/renderer.py`).
+"""Volume renderer: rays -> coarse pass -> PDF resampling -> fine pass
+(or, without fine sampling, the coarse pass alone) -> composite (PyTorch
+port of `nerf_from_image_tpu/render/renderer.py`).
 
 The field is `sample_fn(points, requests, directions) -> dict`: the JAX
 package's `sample_fn(points, requests)`, also given the rays' normalized
@@ -64,14 +65,15 @@ def render(sample_fn: SampleFn, height: int, width: int,
            bbox: Optional[torch.Tensor] = None,
            compute_normals: bool = False,
            compute_semantics: bool = False,
-           compute_coords: bool = False) -> RenderOutput:
+           compute_coords: bool = False,
+           fine_sampling: bool = True) -> RenderOutput:
     """Renders a batch of views.
 
     Args:
       cam2world: (B, 4, 4) float32; focal_length: (B,) float32, or None
         for an orthographic camera.
-      depth_samples_per_ray: S coarse and S fine samples per ray (the
-        reference always samples fine: `--fine_sampling` is always true).
+      depth_samples_per_ray: S coarse and, with `fine_sampling`, S fine
+        samples per ray.
       rng: None for deterministic sampling; a `torch.Generator` for
         jittered coarse depths and random PDF draws (drawn in that order);
         or those draws themselves, {'depth': uniform (B, H, W, S),
@@ -86,6 +88,10 @@ def render(sample_fn: SampleFn, height: int, width: int,
         the coarse and fine points into `semantics` (in place of the
         palette probabilities) with the weights themselves, not detached,
         as the JAX package does.
+      fine_sampling: the PDF-resampled fine pass (the reference always
+        samples fine: `--fine_sampling` parses as true). Without it the
+        stratified coarse pass alone is composited, its samples already
+        in depth order.
     """
     b = cam2world.shape[0]
     s = depth_samples_per_ray
@@ -116,6 +122,10 @@ def render(sample_fn: SampleFn, height: int, width: int,
     rgb = unflatten(out_coarse['rgb'])
     overflow_resid = out_coarse.get('overflow_resid')
     per_sample = {k: unflatten(out_coarse[k]) for k in extra}
+    if not fine_sampling:
+        return _composite(sigma, rgb, ray_directions, depth_values,
+                          per_sample, white_background, overflow_resid,
+                          samples_sorted=True)
 
     weights = compositing.render_volume_density_weights_only(
         sigma, ray_directions, depth_values).detach()
@@ -141,13 +151,21 @@ def render(sample_fn: SampleFn, height: int, width: int,
         per_sample[k] = torch.cat((per_sample[k], unflatten(out_fine[k])),
                                   dim=-2)
 
+    return _composite(sigma, rgb, ray_directions, depth_values, per_sample,
+                      white_background, overflow_resid)
+
+
+def _composite(sigma, rgb, ray_directions, depth_values, per_sample,
+               white_background, overflow_resid, samples_sorted=False
+               ) -> RenderOutput:
     # Coordinates take the semantics slot, as in the JAX package.
     semantics = per_sample.get('coords', per_sample.get('semantics'))
     rgb_map, depth_map, mask, normal_map, semantic_map = \
         compositing.composite(sigma, rgb, ray_directions, depth_values,
                               normals=per_sample.get('normals'),
                               semantics=semantics,
-                              white_background=white_background)
+                              white_background=white_background,
+                              samples_sorted=samples_sorted)
     return RenderOutput(rgb=rgb_map, depth=depth_map, mask=mask,
                         normals=normal_map, semantics=semantic_map,
                         overflow_resid=overflow_resid)

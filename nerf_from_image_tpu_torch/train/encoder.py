@@ -40,11 +40,11 @@ Batch = Dict[str, object]
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
     """The fields of the JAX package's `EncoderConfig` that the port
-    reads: the render always samples fine, and the schedule's length is
-    MAX_ITERS."""
+    reads; the schedule's length is MAX_ITERS."""
     resolution: int = 128
     latent_dim: int = 512
     depth_samples_per_ray: int = 64
+    fine_sampling: bool = True
     scene_range: float = 0.55
     white_background: bool = True
 
@@ -105,7 +105,8 @@ def render_distillation_targets(
     out = render(gen.field(state, sampler), cfg.resolution, cfg.resolution,
                  pose, focal, cfg.scene_range, cfg.white_background,
                  cfg.depth_samples_per_ray, rng=rng, center=center,
-                 bbox=bbox, compute_coords=True)
+                 bbox=bbox, compute_coords=True,
+                 fine_sampling=cfg.fine_sampling)
     return out.rgb.clamp(-1.0, 1.0), out.mask, out.semantics, ws
 
 

@@ -10,30 +10,50 @@ global gradient norm, takes an Adam step, clamps beta/alpha and updates
 the EMA copy. The D step scores ADA-augmented (and, during warmup,
 blurred) real images with R1, and fakes rendered without a graph.
 
+The flag-only modes of the reference trainer:
+- encoder or class conditioning (`use_encoder`, `use_class`): G maps z
+  with the embedding of the batch's image or class (`embed_condition`),
+  and D1 sees the same image or class;
+- path-length regularization: the norm of the gradient of random
+  projections of the planes and palette to the ws
+  (`compute_path_length`), against a running average, in its own
+  backward pass whose gradients are summed into G's;
+- dual discriminators: G renders the same latents (and conditioning) a
+  second time from a second batch's poses for a second D, each
+  adversarial loss halved. D2 is D1 itself without an encoder
+  (`'shared'`), else a D that does not see the image. The L1 and MSE
+  modes replace D1 by 10 x the L1 or MSE of the render against the
+  blurred conditioning image (and the G batch is not augmented; under
+  `supervise_alpha` the mask against the image's alpha); without
+  an encoder no D is left at all, and the G step fails as the JAX
+  package's does.
+
 The poses are data, so no coordinate of the render carries a gradient:
 autograd asks the triplane sampler for the planes' gradient only, and on
 the card its backward runs kernel B4 (`ops/csrc/triplane_sample_grad_planes
 .cu`), the port's form of the JAX package's `coord_grads=False`. The
 forward runs kernel B1. The regularizers decode on the gather sampler,
-which autograd differentiates twice. `sampler=` names the render's
-sampler, so a step can be held against the same step on the plain
-versions.
+which autograd differentiates twice; path-length regularization
+differentiates the synthesis twice and samples nothing. `sampler=` names
+the render's sampler, so a step can be held against the same step on the
+plain versions.
 
 The state is updated in place. Every random draw comes from the state's
 `torch.Generator`, or from arrays injected as the JAX package injects
-them: `batch['noise']` ('depth', 'pdf_u', 'strata', 'perturb', and
-'sg_noise', the per-layer StyleGAN noise of a noise-enabled generator,
-which otherwise draws fresh noise on every forward) and
+them: `batch['noise']` ('depth', 'pdf_u', 'strata', 'perturb',
+'ppl_planes', 'ppl_attn', and 'sg_noise', the per-layer StyleGAN noise of
+a noise-enabled generator, which otherwise draws fresh noise on every
+forward, the same for a step's render and its path length) and
 `batch['aug_tform']`. A view-direction generator (carla) renders with
-its rays' directions. Path-length regularization, dual discriminators,
-and encoder or class conditioning are not ported yet.
+its rays' directions.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +91,9 @@ class GANConfig:
     resolution: int = 128
     latent_dim: int = 512
     depth_samples_per_ray: int = 64
+    # The reference always samples fine (--fine_sampling parses as true);
+    # without it a pass of depth_samples_per_ray stratified samples only.
+    fine_sampling: bool = True
     scene_range: float = 0.55
     white_background: bool = True
     camera_flipped: bool = False
@@ -95,52 +118,91 @@ class GANConfig:
     # = not --disable_stylegan_noise (cub, imagenet_elephant): fresh
     # per-layer noise on every forward.
     use_stylegan_noise: bool = False
-    # Not ported yet: g_step and d_step raise when one is set.
     path_length_regularization: bool = False
+    use_encoder: bool = False  # G and D1 conditioned on an image
+    use_class: bool = False  # G and D conditioned on a class label
+    # The train split's with use_class, else None (the models' class
+    # tables follow it).
+    num_classes: Optional[int] = None
     dual_discriminator: bool = False
-    use_encoder: bool = False
-    use_class: bool = False
+    dual_discriminator_l1: bool = False  # D1 replaced by 10 x L1 recon
+    dual_discriminator_mse: bool = False  # D1 replaced by 10 x MSE recon
+
+    @property
+    def recon_mode(self) -> bool:
+        """Whether a reconstruction loss takes D1's place."""
+        return self.dual_discriminator_l1 or self.dual_discriminator_mse
 
 
 @dataclasses.dataclass
 class GANTrainState:
     gen: Generator
     gen_ema: Generator
-    disc: Discriminator
+    disc: Optional[Discriminator]  # None in the recon modes
     opt_g: torch.optim.Adam
-    opt_d: torch.optim.Adam
+    opt_d: Optional[torch.optim.Adam]
     iteration: int  # the global i: G steps even, D steps odd
     rng: torch.Generator
     augment_p: float  # the ADA probability
-    ppl_running_avg: float  # < 0: not started (PPL is not ported yet)
+    ppl_running_avg: float  # < 0: not started
+    # The separate second discriminator of dual-D mode with an encoder.
+    disc2: Optional[Discriminator] = None
+    opt_d2: Optional[torch.optim.Adam] = None
 
 
-def _check_supported(cfg: GANConfig) -> None:
-    for name in ('path_length_regularization', 'dual_discriminator',
-                 'use_encoder', 'use_class'):
-        if getattr(cfg, name):
-            raise NotImplementedError(f'{name} is not ported yet')
+def second_discriminator(cfg: GANConfig) -> Optional[str]:
+    """The dual-D mode's second discriminator: None (single D, or the
+    recon modes without an encoder, where no D is left), 'shared' (D1's
+    parameters over a second batch) without an encoder, 'separate' (a
+    D that does not see the image) with one."""
+    if not cfg.dual_discriminator:
+        return None
+    if not cfg.use_encoder:
+        return None if cfg.recon_mode else 'shared'
+    return 'separate'
+
+
+def _discriminator(cfg: GANConfig, use_encoder: bool, dtype: torch.dtype,
+                   device: DeviceLike, seed: int) -> Discriminator:
+    return Discriminator(resolution=cfg.resolution,
+                         nc=4 if cfg.supervise_alpha else 3,
+                         camera_flipped=cfg.camera_flipped,
+                         use_encoder=use_encoder,
+                         num_classes=cfg.num_classes,
+                         channel_base=cfg.channel_base,
+                         channel_max=cfg.channel_max, dtype=dtype,
+                         device=device, seed=seed)
 
 
 def make_models(cfg: GANConfig, dtype: torch.dtype = torch.float32,
                 device: DeviceLike = None, seed: int = 0
-                ) -> Tuple[Generator, Discriminator]:
-    """The generator (from `seed`) and the discriminator (from seed + 1),
-    on `device` (None: CUDA)."""
+                ) -> Tuple[Generator, Optional[Discriminator]]:
+    """The generator (from `seed`) and the discriminator (from seed + 1;
+    None in the recon modes, where a loss takes its place), on `device`
+    (None: CUDA)."""
     gen = Generator(latent_dim=cfg.latent_dim, scene_range=cfg.scene_range,
                     attention_values=cfg.attention_values,
                     img_resolution=cfg.plane_resolution,
                     channel_base=cfg.channel_base,
                     channel_max=cfg.channel_max, dtype=dtype, device=device,
                     seed=seed, use_viewdir=cfg.use_viewdir,
-                    use_stylegan_noise=cfg.use_stylegan_noise)
-    disc = Discriminator(resolution=cfg.resolution,
-                         nc=4 if cfg.supervise_alpha else 3,
-                         camera_flipped=cfg.camera_flipped,
-                         channel_base=cfg.channel_base,
-                         channel_max=cfg.channel_max, dtype=dtype,
-                         device=device, seed=seed + 1)
+                    use_stylegan_noise=cfg.use_stylegan_noise,
+                    use_encoder=cfg.use_encoder,
+                    num_classes=cfg.num_classes)
+    disc = (None if cfg.recon_mode else
+            _discriminator(cfg, cfg.use_encoder, dtype, device, seed + 1))
     return gen, disc
+
+
+def make_second_discriminator(cfg: GANConfig,
+                              dtype: torch.dtype = torch.float32,
+                              device: DeviceLike = None, seed: int = 0
+                              ) -> Optional[Discriminator]:
+    """The separate second discriminator (from seed + 2) when
+    `second_discriminator(cfg)` is 'separate', else None."""
+    if second_discriminator(cfg) != 'separate':
+        return None
+    return _discriminator(cfg, False, dtype, device, seed + 2)
 
 
 def _lr(base_lr: float, count: int) -> float:
@@ -150,18 +212,17 @@ def _lr(base_lr: float, count: int) -> float:
     return base_lr / 10.0 + (base_lr - base_lr / 10.0) * frac
 
 
-def make_optimizers(cfg: GANConfig, gen: Generator, disc: Discriminator
-                    ) -> Tuple[torch.optim.Adam, torch.optim.Adam]:
-    """Adam(b1 = 0, b2 = 0.99, eps = 1e-8) for G and D; each keeps its step
-    count in its param group's 'count', for the lr warmup."""
-    opts = []
-    for module, base_lr in ((gen, cfg.lr_g), (disc, cfg.lr_d)):
-        opt = torch.optim.Adam(module.parameters(),
-                               lr=_lr(base_lr, 0),
-                               betas=(0.0, 0.99), eps=1e-8)
-        opt.param_groups[0]['count'] = 0
-        opts.append(opt)
-    return opts[0], opts[1]
+def make_optimizer(module: Optional[torch.nn.Module], base_lr: float
+                   ) -> Optional[torch.optim.Adam]:
+    """Adam(b1 = 0, b2 = 0.99, eps = 1e-8) over `module`'s parameters
+    (None for no module); it keeps its step count in its param group's
+    'count', for the lr warmup."""
+    if module is None:
+        return None
+    opt = torch.optim.Adam(module.parameters(), lr=_lr(base_lr, 0),
+                           betas=(0.0, 0.99), eps=1e-8)
+    opt.param_groups[0]['count'] = 0
+    return opt
 
 
 def init_train_state(cfg: GANConfig, dtype: torch.dtype = torch.float32,
@@ -169,15 +230,17 @@ def init_train_state(cfg: GANConfig, dtype: torch.dtype = torch.float32,
                      ) -> GANTrainState:
     """A fresh state at iteration 0 on `device` (None: CUDA, raising when
     it is absent); the EMA generator starts as a copy of G."""
-    _check_supported(cfg)
     device = resolve_device(device)
     gen, disc = make_models(cfg, dtype, device, seed)
+    disc2 = make_second_discriminator(cfg, dtype, device, seed)
     gen_ema = copy.deepcopy(gen).requires_grad_(False)
-    opt_g, opt_d = make_optimizers(cfg, gen, disc)
     return GANTrainState(
-        gen=gen, gen_ema=gen_ema, disc=disc, opt_g=opt_g, opt_d=opt_d,
+        gen=gen, gen_ema=gen_ema, disc=disc,
+        opt_g=make_optimizer(gen, cfg.lr_g),
+        opt_d=make_optimizer(disc, cfg.lr_d),
         iteration=0, rng=torch.Generator(device=device).manual_seed(seed),
-        augment_p=0.0, ppl_running_avg=-1.0)
+        augment_p=0.0, ppl_running_avg=-1.0, disc2=disc2,
+        opt_d2=make_optimizer(disc2, cfg.lr_d))
 
 
 def _adam_step(opt: torch.optim.Adam, params: Sequence[torch.Tensor],
@@ -219,29 +282,65 @@ def _update_ema(ema: Generator, model: Generator, alpha: float) -> None:
     torch._foreach_add_(e, m, alpha=1.0 - alpha)
 
 
+def embed_condition(gen: Generator, cfg: GANConfig, batch: Batch
+                    ) -> Optional[torch.Tensor]:
+    """G's conditioning embedding of a batch: its image's (NHWC, the RGB
+    channels) with `use_encoder`, its class's with `use_class`, else
+    None."""
+    if cfg.use_encoder and 'image' in batch:
+        return gen.embed_image(batch['image'][..., :3].permute(0, 3, 1, 2))
+    if cfg.use_class and 'class' in batch:
+        return gen.embed_class(batch['class'])
+    return None
+
+
+def _d_condition(cfg: GANConfig, batch: Batch, see_image: bool = True):
+    """What a discriminator is conditioned on besides the pose: the class
+    labels with `use_class`, else (for a D that sees it) the image, NCHW."""
+    if cfg.use_class:
+        return batch.get('class')
+    if cfg.use_encoder and see_image:
+        return batch['image'][..., :3].permute(0, 3, 1, 2)
+    return None
+
+
+def stylegan_noise(gen: Generator, batch_size: int, rng: torch.Generator,
+                   noise: Optional[Dict[str, object]]):
+    """The StyleGAN noise of one forward: the injected per-layer values
+    ('sg_noise'), else, for a noise-enabled generator, fresh values from
+    `rng` (which the step's path length then reuses), else None."""
+    if noise is not None and 'sg_noise' in noise:
+        return noise['sg_noise']
+    if gen.noise_mode(rng) != 'random':
+        return None
+    return gen.synthesis_network.noise_values(batch_size, rng,
+                                              gen.beta.device)
+
+
 def generator_forward(gen: Generator, z: torch.Tensor, pose: torch.Tensor,
                       focal: Optional[torch.Tensor], cfg: GANConfig,
                       rng: torch.Generator, requests: Sequence[str] = (),
                       noise: Optional[Dict[str, torch.Tensor]] = None,
-                      sampler: Sampler = triplane_cuda.sample_triplane
+                      sampler: Sampler = triplane_cuda.sample_triplane,
+                      cond: Optional[torch.Tensor] = None
                       ) -> Tuple[RenderOutput, Dict[str, torch.Tensor]]:
-    """Maps z, synthesizes, renders; with `requests` (regularizers of
-    `Generator.sdf_losses`), also runs those. `noise` replaces the draws
-    of `rng` with the injected arrays it holds ('sg_noise', the per-layer
-    StyleGAN noise, outermost layer first; 'depth', 'pdf_u' for the
-    render; 'strata', 'perturb' for the regularizers). A noise-enabled
-    generator draws its StyleGAN noise from `rng` first, then the render
-    draws. Returns (render, regularizers)."""
-    sg_noise = rng
-    if noise is not None and 'sg_noise' in noise:
-        sg_noise = noise['sg_noise']
-    state = gen.synthesize(gen.map(z), noise=sg_noise)
+    """Maps z (with the conditioning embedding `cond`), synthesizes,
+    renders; with `requests` (regularizers of `Generator.sdf_losses`),
+    also runs those. `noise` replaces the draws of `rng` with the
+    injected arrays it holds ('sg_noise', the per-layer StyleGAN noise,
+    outermost layer first; 'depth', 'pdf_u' for the render; 'strata',
+    'perturb' for the regularizers). A noise-enabled generator draws its
+    StyleGAN noise from `rng` first, then the render draws. Returns
+    (render, regularizers)."""
+    sg_noise = stylegan_noise(gen, z.shape[0], rng, noise)
+    state = gen.synthesize(gen.map(z, cond), noise=sg_noise)
     render_rng = rng
     if noise is not None and ('depth' in noise or 'pdf_u' in noise):
         render_rng = {k: noise[k] for k in ('depth', 'pdf_u') if k in noise}
     out = render(gen.field(state, sampler), cfg.resolution, cfg.resolution,
                  pose, focal, cfg.scene_range, cfg.white_background,
-                 cfg.depth_samples_per_ray, rng=render_rng)
+                 cfg.depth_samples_per_ray, rng=render_rng,
+                 fine_sampling=cfg.fine_sampling)
     extra = {}
     if requests:
         reg_rng = rng
@@ -250,6 +349,35 @@ def generator_forward(gen: Generator, z: torch.Tensor, pose: torch.Tensor,
                        if k in noise}
         extra = gen.sdf_losses(state.planes_cl, reg_rng, requests)
     return out, extra
+
+
+def compute_path_length(gen: Generator, ws: torch.Tensor, rng:
+                        torch.Generator, sg_noise=None,
+                        noise: Optional[Dict[str, torch.Tensor]] = None
+                        ) -> torch.Tensor:
+    """Path length (B,): the norm, averaged over the ws, of the gradient
+    to `ws` of sum(planes * n1) / R + sum(palette * n2), n1 and n2
+    standard normal (injected as 'ppl_planes' and 'ppl_attn', else drawn
+    from `rng` in that order), synthesized with the StyleGAN noise
+    `sg_noise` of the step's forward. The gradient keeps its graph, so
+    the result differentiates to G's parameters."""
+    state = gen.synthesize(ws, noise=sg_noise)
+    planes, att = state.planes, state.attention_values
+    if noise is not None and 'ppl_planes' in noise:
+        n1 = noise['ppl_planes'].reshape(planes.shape).to(planes.device)
+    else:
+        n1 = torch.randn(planes.shape, generator=rng, device=planes.device)
+    total = (planes * (n1 / math.sqrt(planes.shape[-2] *
+                                      planes.shape[-1])).to(
+        planes.dtype)).float().sum()
+    if att is not None:
+        if noise is not None and 'ppl_attn' in noise:
+            n2 = noise['ppl_attn'].reshape(att.shape).to(att.device)
+        else:
+            n2 = torch.randn(att.shape, generator=rng, device=att.device)
+        total = total + (att * n2.to(att.dtype)).float().sum()
+    grad, = torch.autograd.grad(total, ws, create_graph=True)
+    return grad.float().square().sum(dim=-1).mean(dim=-1).sqrt()
 
 
 def _image(out: RenderOutput, cfg: GANConfig) -> torch.Tensor:
@@ -261,32 +389,89 @@ def _image(out: RenderOutput, cfg: GANConfig) -> torch.Tensor:
     return rgb.permute(0, 3, 1, 2)
 
 
-def generator_loss(state: GANTrainState, batch: Batch, cfg: GANConfig,
-                   sampler: Sampler = triplane_cuda.sample_triplane
-                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The G step's loss, with a graph to G's parameters, and its metrics;
-    `batch` holds 'z', 'pose', 'focal' and optionally 'noise' and
-    'aug_tform'. Changes nothing in the state but its generator's
-    draws."""
-    _check_supported(cfg)
-    i = state.iteration
+def _augment_poses(state: GANTrainState, batch: Batch, cfg: GANConfig,
+                   augmented: bool = True):
     pose, focal = batch['pose'], batch.get('focal')
-    if cfg.augment_p_max > 0:
+    if cfg.augment_p_max > 0 and augmented:
         _, pose, focal, _ = augment.augment(
             state.rng, None, pose, focal, state.augment_p,
             cfg.white_background, cached_tform=batch.get('aug_tform'))
+    return pose, focal
+
+
+def _check_g_mode(cfg: GANConfig) -> Optional[str]:
+    """Refuses the G step's modes where the JAX package fails; returns
+    `second_discriminator(cfg)`."""
+    kind2 = second_discriminator(cfg)
+    if cfg.dual_discriminator and kind2 is None:
+        # The JAX package's G step calls a second discriminator that does
+        # not exist here (train/gan.py:561-567) and fails.
+        raise ValueError('dual_discriminator_l1/_mse without use_encoder '
+                         'leaves no discriminator for the second pass')
+    if cfg.recon_mode and cfg.supervise_alpha:
+        # The JAX package subtracts the conditioning image's three channels
+        # from the render's four (the mask the fourth) and fails.
+        raise ValueError('dual_discriminator_l1/_mse compare the render '
+                         'with the RGB image and cannot take '
+                         'supervise_alpha')
+    return kind2
+
+
+def generator_loss(state: GANTrainState, batch: Batch, cfg: GANConfig,
+                   sampler: Sampler = triplane_cuda.sample_triplane,
+                   batch2: Optional[Batch] = None,
+                   sg_noise: Optional[List[torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The G step's loss, with a graph to G's parameters, and its metrics;
+    `batch` holds 'z', 'pose', 'focal', with conditioning 'image' or
+    'class', and optionally 'noise' and 'aug_tform'; `batch2` the second
+    poses of dual-D mode ('pose', 'focal', optionally 'noise' and
+    'aug_tform'); `sg_noise` the forward's StyleGAN noise (see
+    `stylegan_noise`; None: the batch's or the generator's own draws).
+    Changes nothing in the state but its generator's draws."""
+    i = state.iteration
+    kind2 = _check_g_mode(cfg)
+    pose, focal = _augment_poses(state, batch, cfg, not cfg.recon_mode)
+    pose2 = focal2 = None
+    if cfg.dual_discriminator:
+        pose2, focal2 = _augment_poses(state, batch2, cfg)
     requests = ['sdf_eikonal_loss']
     if cfg.tv > 0:
         requests.append('total_variation_loss')
     if cfg.entropy > 0:
         requests.append('entropy_loss')
 
+    noise = dict(batch.get('noise') or {})
+    if sg_noise is not None:
+        noise['sg_noise'] = sg_noise
+    cond = embed_condition(state.gen, cfg, batch)
     out, extra = generator_forward(state.gen, batch['z'], pose, focal, cfg,
-                                   state.rng, requests, batch.get('noise'),
-                                   sampler)
-    logits = state.disc(_image(out, cfg), pose, None, focal)
-    loss = gan_loss(logits, True)
+                                   state.rng, requests, noise, sampler,
+                                   cond)
+    img = _image(out, cfg)
+    if cfg.recon_mode:
+        target = blur_image(batch['image'][..., :3].permute(0, 3, 1, 2), i,
+                            cfg.white_background)
+        diff = img - target
+        loss = 10.0 * (diff.square().mean() if cfg.dual_discriminator_mse
+                       else diff.abs().mean())
+    else:
+        logits = state.disc(img, pose, _d_condition(cfg, batch), focal)
+        loss = gan_loss(logits, True)
     metrics = {'loss_g': loss}
+    if cfg.dual_discriminator:
+        # The same latents and conditioning from the second poses, for
+        # the second discriminator, which keeps class labels but never
+        # sees the image.
+        out2, _ = generator_forward(state.gen, batch['z'], pose2, focal2,
+                                    cfg, state.rng, (), batch2.get('noise'),
+                                    sampler, cond)
+        disc2 = state.disc if kind2 == 'shared' else state.disc2
+        logits2 = disc2(_image(out2, cfg), pose2,
+                        _d_condition(cfg, batch2, see_image=False), focal2)
+        loss2 = gan_loss(logits2, True)
+        metrics['loss_g_uncond'] = loss2
+        loss = loss / 2.0 + loss2 / 2.0
     eik = extra['sdf_eikonal_loss'].mean()
     loss = loss + cfg.eikonal * eik
     metrics['loss_eikonal'] = eik
@@ -302,16 +487,52 @@ def generator_loss(state: GANTrainState, batch: Batch, cfg: GANConfig,
     return loss, metrics
 
 
+def path_length_loss(state: GANTrainState, batch: Batch, cfg: GANConfig,
+                     sg_noise: Optional[List[torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, float]:
+    """The path-length penalty of a G step, with a graph to G's
+    parameters: (weighted penalty, penalty, the new running average).
+    The batch's latents and conditioning are mapped again, and the
+    synthesis takes the forward's StyleGAN noise `sg_noise`. The running
+    average starts at the first batch's mean and moves by 0.01 of each
+    batch's mean; it is a constant of the penalty."""
+    ws = state.gen.map(batch['z'], embed_condition(state.gen, cfg, batch))
+    ppl = compute_path_length(state.gen, ws, state.rng, sg_noise,
+                              batch.get('noise'))
+    pl_decay = 0.01
+    pl_weight = 2.0 * min(state.iteration / LR_WARMUP_ITERS, 1.0)
+    mean = ppl.detach().mean()
+    avg0 = mean if state.ppl_running_avg < 0 else state.ppl_running_avg
+    avg = avg0 * (1 - pl_decay) + mean * pl_decay
+    penalty = (ppl - avg).square().mean()
+    return pl_weight * penalty, penalty, float(avg)
+
+
 def g_step(state: GANTrainState, batch: Batch, cfg: GANConfig,
-           sampler: Sampler = triplane_cuda.sample_triplane
-           ) -> Dict[str, torch.Tensor]:
-    """One generator update (see `generator_loss` for `batch`): Adam on the
-    clipped gradients, the beta/alpha clamp, the EMA, i + 1. Returns the
-    step's metrics."""
-    loss, metrics = generator_loss(state, batch, cfg, sampler)
+           sampler: Sampler = triplane_cuda.sample_triplane,
+           batch2: Optional[Batch] = None) -> Dict[str, torch.Tensor]:
+    """One generator update (see `generator_loss` for `batch` and
+    `batch2`): with path-length regularization its penalty's gradients
+    (own backward pass) are added to the loss's; then Adam on the clipped
+    gradients, the beta/alpha clamp, the EMA, i + 1. Returns the step's
+    metrics."""
+    _check_g_mode(cfg)
+    sg_noise = stylegan_noise(state.gen, batch['z'].shape[0], state.rng,
+                              batch.get('noise'))
+    loss, metrics = generator_loss(state, batch, cfg, sampler, batch2,
+                                   sg_noise)
     i = state.iteration
     params = list(state.gen.parameters())
     grads = torch.autograd.grad(loss, params, allow_unused=True)
+    del loss
+    if cfg.path_length_regularization:
+        weighted, penalty, avg = path_length_loss(state, batch, cfg,
+                                                  sg_noise)
+        ppl_grads = torch.autograd.grad(weighted, params, allow_unused=True)
+        grads = [a if b is None else b if a is None else a + b
+                 for a, b in zip(grads, ppl_grads)]
+        metrics['loss_ppl'] = penalty
+        state.ppl_running_avg = avg
     metrics['grad_norm_g'] = _adam_step(state.opt_g, params, grads,
                                         cfg.lr_g, cfg)
     with torch.no_grad():
@@ -348,65 +569,126 @@ def _prepare_d_real(state: GANTrainState, batch: Batch, cfg: GANConfig,
 
 @torch.no_grad()
 def _render_fake(state: GANTrainState, fake_batch: Batch, cfg: GANConfig,
-                 sampler: Sampler
+                 sampler: Sampler, conditional: bool
                  ) -> Tuple[torch.Tensor, torch.Tensor,
                             Optional[torch.Tensor]]:
     """Fakes rendered by G (not its EMA) without a graph, from ADA-augmented
-    poses."""
-    pose, focal = fake_batch['pose'], fake_batch.get('focal')
-    if cfg.augment_p_max > 0:
-        _, pose, focal, _ = augment.augment(
-            state.rng, None, pose, focal, state.augment_p,
-            cfg.white_background, cached_tform=fake_batch.get('aug_tform'))
+    poses, conditioned on the fake batch's image or class when
+    `conditional`."""
+    pose, focal = _augment_poses(state, fake_batch, cfg)
+    cond = (embed_condition(state.gen, cfg, fake_batch) if conditional
+            else None)
     out, _ = generator_forward(state.gen, fake_batch['z'], pose, focal, cfg,
                                state.rng, noise=fake_batch.get('noise'),
-                               sampler=sampler)
+                               sampler=sampler, cond=cond)
     return _image(out, cfg), pose, focal
 
 
-def _d_phase_loss(disc: Discriminator, real, fake, cfg: GANConfig,
-                  use_r1_now: bool):
+def _d_phase_loss(disc: Discriminator, real, fake, cond_real, cond_fake,
+                  cfg: GANConfig, use_r1_now: bool):
     """Real + R1 + fake losses. Returns (loss, loss_real, loss_fake,
     r1 penalty, mean sign of the real logits)."""
     real_img, pose_r, focal_r = real
     fake_img, pose_f, focal_f = fake
     if use_r1_now:
         real_img = real_img.detach().requires_grad_()
-    logits_real = disc(real_img, pose_r, None, focal_r)
+    logits_real = disc(real_img, pose_r, cond_real, focal_r)
     loss_real = gan_loss(logits_real, True)
     penalty = torch.zeros((), device=real_img.device)
     if use_r1_now:
         g, = torch.autograd.grad(logits_real.sum(), real_img,
                                  create_graph=True)
         penalty = g.reshape(g.shape[0], -1).square().sum(dim=1).mean()
-    loss_fake = gan_loss(disc(fake_img, pose_f, None, focal_f), False)
+    loss_fake = gan_loss(disc(fake_img, pose_f, cond_fake, focal_f), False)
     loss = loss_real + (cfg.r1 / 2.0) * penalty + loss_fake
     return (loss, loss_real, loss_fake, penalty,
             torch.sign(logits_real.detach()).float().mean())
 
 
-def d_step(state: GANTrainState, batch: Batch, fake_batch: Batch,
-           cfg: GANConfig, sampler: Sampler = triplane_cuda.sample_triplane
-           ) -> Dict[str, torch.Tensor]:
-    """One discriminator update. `batch` is the real phase ('image', with
-    'image_highres' under `is_highres`, 'pose', 'focal', optionally
-    'aug_tform'); `fake_batch` gives the fakes' 'z', 'pose', 'focal' and
-    optionally 'noise' and 'aug_tform'. R1 runs on odd iterations (every
-    D step) and the blur while i < 12,500; the ADA controller moves p on
-    every fourth D step and holds it at 0 during the blur warmup. Returns
-    the step's metrics."""
-    _check_supported(cfg)
+def discriminator_loss(state: GANTrainState, batch: Batch,
+                       fake_batch: Batch, cfg: GANConfig,
+                       sampler: Sampler = triplane_cuda.sample_triplane,
+                       batch2: Optional[Batch] = None,
+                       fake_batch2: Optional[Batch] = None
+                       ) -> Tuple[Optional[torch.Tensor],
+                                  Dict[str, torch.Tensor]]:
+    """The D step's loss, with a graph to the discriminators' parameters
+    (None when there is no D), and its metrics; see `d_step` for the
+    batches. Changes nothing in the state but its generator's draws."""
     i = state.iteration
-    real = _prepare_d_real(state, batch, cfg, i < BLUR_WARMUP_ITERS)
-    fake = _render_fake(state, fake_batch, cfg, sampler)
-    loss, loss_real, loss_fake, penalty, sign_real = _d_phase_loss(
-        state.disc, real, fake, cfg, cfg.r1 > 0 and i % 2 == 1)
-    params = list(state.disc.parameters())
-    grads = torch.autograd.grad(loss, params)
-    metrics = {'loss_d_real': loss_real, 'loss_d_fake': loss_fake,
-               'loss_r1': penalty, 'sign_real': sign_real}
-    metrics['grad_norm_d'] = _adam_step(state.opt_d, params, grads,
-                                        cfg.lr_d, cfg)
+    use_r1_now = cfg.r1 > 0 and i % 2 == 1
+    blur_active = i < BLUR_WARMUP_ITERS
+    kind2 = second_discriminator(cfg)
+    metrics = {}
+    total = None
+    sign_real = None
+    if not cfg.recon_mode:
+        real = _prepare_d_real(state, batch, cfg, blur_active)
+        fake = _render_fake(state, fake_batch, cfg, sampler, True)
+        total, loss_real, loss_fake, penalty, sign_real = _d_phase_loss(
+            state.disc, real, fake, _d_condition(cfg, batch),
+            _d_condition(cfg, fake_batch), cfg, use_r1_now)
+        suffix = '_cond' if kind2 is not None else ''
+        metrics.update({f'loss_d_real{suffix}': loss_real,
+                        f'loss_d_fake{suffix}': loss_fake,
+                        'loss_r1': penalty})
+    if kind2 is not None:
+        b2 = batch2 if batch2 is not None else batch
+        fb2 = fake_batch2 if fake_batch2 is not None else fake_batch
+        real2 = _prepare_d_real(state, b2, cfg, blur_active)
+        fake2 = _render_fake(state, fb2, cfg, sampler, cfg.use_encoder)
+        disc2 = state.disc if kind2 == 'shared' else state.disc2
+        loss2, loss_real, loss_fake, penalty, sign_real = _d_phase_loss(
+            disc2, real2, fake2, _d_condition(cfg, b2, see_image=False),
+            _d_condition(cfg, fb2, see_image=False), cfg, use_r1_now)
+        metrics.update({'loss_d_real': loss_real, 'loss_d_fake': loss_fake,
+                        'loss_r1_uncond': penalty})
+        total = loss2 if total is None else total + loss2
+    if sign_real is None:
+        sign_real = torch.zeros((), device=state.gen.beta.device)
+    metrics['sign_real'] = sign_real
+    return total, metrics
+
+
+def discriminator_params(state: GANTrainState) -> list:
+    """(parameters, optimizer, metric key) of each discriminator the D
+    step trains: D1, then the separate D2."""
+    return [(list(module.parameters()), opt, key) for module, opt, key in
+            ((state.disc, state.opt_d, 'grad_norm_d'),
+             (state.disc2, state.opt_d2, 'grad_norm_d2'))
+            if module is not None]
+
+
+def d_step(state: GANTrainState, batch: Batch, fake_batch: Batch,
+           cfg: GANConfig, sampler: Sampler = triplane_cuda.sample_triplane,
+           batch2: Optional[Batch] = None,
+           fake_batch2: Optional[Batch] = None) -> Dict[str, torch.Tensor]:
+    """One discriminator update. `batch` is the real phase ('image', with
+    'image_highres' under `is_highres`, 'pose', 'focal', with class
+    conditioning 'class', optionally 'aug_tform'); `fake_batch` gives the
+    fakes' 'z', 'pose', 'focal', the conditioning 'image' or 'class', and
+    optionally 'noise' and 'aug_tform'. In dual-D mode `batch2` and
+    `fake_batch2` (default: the first ones) feed the second
+    discriminator: its fakes are rendered with the conditioning only with
+    an encoder, and its metrics are the plain names (D1's take `_cond`);
+    ADA listens to it. R1 runs on odd iterations (every D step) and the
+    blur while i < 12,500; the ADA controller moves p on every fourth D
+    step and holds it at 0 during the blur warmup. In the recon modes
+    without an encoder there is no D and the step only counts. Returns
+    the step's metrics."""
+    i = state.iteration
+    total, metrics = discriminator_loss(state, batch, fake_batch, cfg,
+                                        sampler, batch2, fake_batch2)
+    updates = discriminator_params(state)
+    if updates:
+        grads = list(torch.autograd.grad(
+            total, [p for params, _, _ in updates for p in params],
+            allow_unused=True))
+        for params, opt, key in updates:
+            metrics[key] = _adam_step(opt, params, grads[:len(params)],
+                                      cfg.lr_d, cfg)
+            grads = grads[len(params):]
+    sign_real = metrics['sign_real']
     if cfg.augment_ada and cfg.augment_p_max > 0 and i % 8 == 7:
         if i < BLUR_WARMUP_ITERS:
             state.augment_p = 0.0

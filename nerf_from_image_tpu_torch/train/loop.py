@@ -9,9 +9,13 @@ the best so far, a numbered one every 50,000), and images per second.
 Batches are assembled on the host from the preloaded split and copied to
 the card; the latents come from the loop's own `torch.Generator` (seed +
 1) on the card, the batch indices from a numpy RandomState (seed) and,
-for the real images, an `EndlessSampler` over it. All three go into the
-checkpoints, so a run resumed from one draws the batches the
-uninterrupted run draws.
+for the real images, an `EndlessSampler` over it, in the JAX loop's
+order: a G step's batch (then, in dual-D mode, the second batch's poses),
+a D step's real batch, fake batch (then the second real and fake
+batches). All three go into the checkpoints, so a run resumed from one
+draws the batches the uninterrupted run draws. Every batch carries its
+images (the encoder's conditioning) and, under class conditioning, its
+class labels.
 """
 
 from __future__ import annotations
@@ -64,6 +68,8 @@ def log_train_scalars(writer, metrics: Dict[str, torch.Tensor],
     writer.add_scalar('img_per_sec', elapsed_ips, i)
     if cfg.augment_p_max > 0:
         writer.add_scalar('augment/p', state.augment_p, i)
+    if cfg.path_length_regularization:
+        writer.add_scalar('ppl/running_avg', state.ppl_running_avg, i)
     for suffix, gen in (('', state.gen), ('_ema', state.gen_ema)):
         writer.add_scalar(f'sdf/beta{suffix}', gen.beta.item(), i)
         writer.add_scalar(f'sdf/alpha{suffix}', gen.alpha.item(), i)
@@ -76,8 +82,9 @@ def sample_batch(train_split, batch_size: int, rng: np.random.RandomState,
                  is_highres: bool = False,
                  device: Optional[torch.device] = None):
     """(indices, batch): the split's rows at indices from `train_sampler`
-    (or drawn from `rng`), as float32 tensors on `device`, and with
-    `latent_rng` the latents 'z' drawn from it."""
+    (or drawn from `rng`), as float32 tensors on `device` (the class
+    labels, where the split has them, as int64), and with `latent_rng`
+    the latents 'z' drawn from it."""
     if train_sampler is not None:
         idx = train_sampler(batch_size)
     else:
@@ -93,6 +100,10 @@ def sample_batch(train_split, batch_size: int, rng: np.random.RandomState,
                       ('center', 'center')):
         if getattr(train_split, name) is not None:
             batch[key] = tensor(getattr(train_split, name)[idx])
+    if getattr(train_split, 'classes', None) is not None:
+        batch['class'] = torch.as_tensor(
+            np.asarray(train_split.classes[idx]), dtype=torch.int64,
+            device=device)
     if is_highres and train_split.images_highres is not None:
         batch['image_highres'] = tensor(train_split.images_highres[idx])
     if latent_rng is not None:
@@ -121,25 +132,32 @@ def train_gan(state: gan_lib.GANTrainState, cfg: gan_lib.GANConfig,
     ckpt_lib.restore_loop_state(host_state, rng_np, train_sampler,
                                 latent_rng)
     hires = cfg.is_highres and cfg.augment_p_max > 0
+    dual = cfg.dual_discriminator
+
+    def draw(**kwargs):
+        return sample_batch(train_split, cfg.batch_size, rng_np, cfg,
+                            device=device, **kwargs)[1]
 
     i = state.iteration
     t1 = time.time()
     elapsed_ips = 0.0
     while i < num_iters:
         if i % 2 == 0:
-            _, batch = sample_batch(train_split, cfg.batch_size, rng_np, cfg,
-                                    latent_rng=latent_rng, device=device)
+            batch = draw(latent_rng=latent_rng)
+            batch2 = draw() if dual else None
             t1 = time.time()
-            metrics = gan_lib.g_step(state, batch, cfg)
+            metrics = gan_lib.g_step(state, batch, cfg, batch2=batch2)
             if device.type == 'cuda':
                 torch.cuda.synchronize(device)
         else:
-            _, real = sample_batch(train_split, cfg.batch_size, rng_np, cfg,
-                                   train_sampler=train_sampler,
-                                   is_highres=hires, device=device)
-            _, fake = sample_batch(train_split, cfg.batch_size, rng_np, cfg,
-                                   latent_rng=latent_rng, device=device)
-            metrics = gan_lib.d_step(state, real, fake, cfg)
+            real = draw(train_sampler=train_sampler, is_highres=hires)
+            fake = draw(latent_rng=latent_rng)
+            real2 = fake2 = None
+            if dual:
+                real2 = draw(is_highres=hires)
+                fake2 = draw(latent_rng=latent_rng)
+            metrics = gan_lib.d_step(state, real, fake, cfg, batch2=real2,
+                                     fake_batch2=fake2)
             elapsed_ips = cfg.batch_size / max(time.time() - t1, 1e-9)
 
         if writer is not None and i % log_every == 0:

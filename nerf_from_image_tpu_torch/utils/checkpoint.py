@@ -2,9 +2,12 @@
 
 GAN checkpoint (reference run.py:1474-1516; the JAX package reads this
 layout in `cli/run.py:convert_reference_checkpoint`): `model`,
-`model_ema`, `discriminator` (state dicts in the reference's keys, which
-are the port's module names), `optimizer_g`, `optimizer_d` (torch Adam
-state dicts), `iteration`, `augment_p`, `ppl_running_avg`, `best_fid`
+`model_ema`, `discriminator` (None in the recon modes) and, in dual-D mode
+with an encoder, `discriminator2` (state dicts in the reference's keys,
+which are the port's module names), `optimizer_g`, `optimizer_d` (torch
+Adam state dicts; one `optimizer_d` over D's parameters and then D2's, as
+the reference builds it and the JAX package reads it), `iteration`,
+`augment_p`, `ppl_running_avg`, `best_fid`
 and `random_state` (the state's torch generator and, when given, the
 training loop's host state: its numpy RandomState, its batch sampler's
 permutation and position, and its latent generator). A reference checkpoint restores through the
@@ -136,6 +139,40 @@ def restore_loop_state(saved: Optional[dict],
     _set_generator(latent_rng, saved, 'latent_generator')
 
 
+def _joint_optimizer_state(opts) -> Optional[Dict[str, Any]]:
+    """One Adam state dict over the parameters of `opts` (None skipped)
+    back to back: the reference's `optimizer_d` over D and D2."""
+    opts = [o for o in opts if o is not None]
+    if not opts:
+        return None
+    state, params = {}, []
+    for opt in opts:
+        sd = opt.state_dict()
+        offset = len(params)
+        state.update({offset + i: v for i, v in sd['state'].items()})
+        params += [offset + i for i in sd['param_groups'][0]['params']]
+    group = dict(opts[0].state_dict()['param_groups'][0], params=params)
+    return {'state': state, 'param_groups': [group]}
+
+
+def _split_optimizer_state(saved: Dict[str, Any], opts) -> None:
+    """Loads a joint `optimizer_d` (see `_joint_optimizer_state`) into the
+    optimizers `opts` (None skipped), each taking its run of indices."""
+    opts = [o for o in opts if o is not None]
+    offset = 0
+    for opt in opts:
+        n = len(opt.param_groups[0]['params'])
+        group = dict(saved['param_groups'][0], params=list(range(n)))
+        state = {}
+        for i in range(n):
+            entry = saved['state'].get(offset + i,
+                                       saved['state'].get(str(offset + i)))
+            if entry is not None:
+                state[i] = entry
+        _load_optimizer(opt, {'state': state, 'param_groups': [group]})
+        offset += n
+
+
 def gan_checkpoint(state, best_fid: Optional[float] = None,
                    rng_np: Optional[np.random.RandomState] = None,
                    sampler=None,
@@ -146,9 +183,12 @@ def gan_checkpoint(state, best_fid: Optional[float] = None,
     return {
         'model': state.gen.state_dict(),
         'model_ema': state.gen_ema.state_dict(),
-        'discriminator': state.disc.state_dict(),
+        'discriminator': (None if state.disc is None else
+                          state.disc.state_dict()),
+        'discriminator2': (None if state.disc2 is None else
+                           state.disc2.state_dict()),
         'optimizer_g': state.opt_g.state_dict(),
-        'optimizer_d': state.opt_d.state_dict(),
+        'optimizer_d': _joint_optimizer_state((state.opt_d, state.opt_d2)),
         'iteration': state.iteration,
         'augment_p': state.augment_p,
         'ppl_running_avg': (None if state.ppl_running_avg < 0 else
@@ -172,8 +212,9 @@ def restore_gan_checkpoint(ckpt: Dict[str, Any], state,
                            rng_np: Optional[np.random.RandomState] = None
                            ) -> Dict[str, Any]:
     """Loads a checkpoint dict (`load` of a port or reference `.pth`) into
-    a `GANTrainState` in place: the EMA generator always; G, D and both
-    optimizers where present; the iteration, ADA p, PPL average and the
+    a `GANTrainState` in place: the EMA generator always; G, D, D2 and
+    the optimizers where present (`optimizer_d` over D's parameters, then
+    D2's); the iteration, ADA p, PPL average and the
     random states. Returns the host state: {'best_fid'} when the
     checkpoint holds one."""
     convert.load_reference_state_dict(state.gen_ema, ckpt['model_ema'])
@@ -181,10 +222,15 @@ def restore_gan_checkpoint(ckpt: Dict[str, Any], state,
         convert.load_reference_state_dict(state.gen, ckpt['model'])
         if ckpt.get('optimizer_g') is not None:
             _load_optimizer(state.opt_g, ckpt['optimizer_g'])
-    if ckpt.get('discriminator') is not None:
-        convert.load_reference_state_dict(state.disc, ckpt['discriminator'])
-        if ckpt.get('optimizer_d') is not None:
-            _load_optimizer(state.opt_d, ckpt['optimizer_d'])
+    loaded = []
+    for key, module, opt in (('discriminator', state.disc, state.opt_d),
+                             ('discriminator2', state.disc2,
+                              state.opt_d2)):
+        if ckpt.get(key) is not None:
+            convert.load_reference_state_dict(module, ckpt[key])
+            loaded.append(opt)
+    if loaded and ckpt.get('optimizer_d') is not None:
+        _split_optimizer_state(ckpt['optimizer_d'], loaded)
     state.iteration = int(ckpt.get('iteration', 0))
     state.augment_p = float(ckpt.get('augment_p') or 0.0)
     ppl = ckpt.get('ppl_running_avg')

@@ -6,9 +6,12 @@ so a reference state dict loads with `load_reference_state_dict`.
 (`nerf_from_image_tpu/utils/torch_convert.py:convert_generator`): it turns
 a JAX `Generator`'s variables, as numpy arrays, into a reference-format
 state dict, and `from_jax_discriminator` does the same for a JAX
-`Discriminator` (the other way from `convert_discriminator`).
-`random_discriminator_state_dict` draws a reference-format discriminator
-state dict from a seed. The LPIPS leg builds reference-format LPIPS
+`Discriminator` (the other way from `convert_discriminator`). Both carry
+the conditional modes' image encoder (`emb`) and class embeddings
+(`class_embedding`, `label_embedding`), which the JAX package's converter
+turns into its own tree only for `emb`. `random_discriminator_state_dict`
+draws a reference-format discriminator state dict from a seed, in every
+conditioning. The LPIPS leg builds reference-format LPIPS
 weights from a seed (`random_lpips_state_dicts`) and loads reference LPIPS
 weights into the port (`load_lpips_state_dicts`): the same two dicts that
 the JAX package's `convert_lpips` takes. `random_encoder_state_dict` draws
@@ -23,7 +26,7 @@ JAX.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +48,27 @@ _OPTIONAL_SUFFIXES = ('.noise_strength', '.noise_const')
 # flax LayerNorm's scale is the reference's weight (the view-direction
 # mapper's norm1..norm4).
 _LAYERNORM_SCALE = re.compile(r'(viewdir_mapper\.norm\d)\.scale$')
+# The image encoder's instance-norm parameters (flat in the JAX tree) and
+# flax's embedding tables.
+_ENCODER_NORM = re.compile(r'(emb\.norm\d+)_(scale|bias)$')
+_EMBEDDING = re.compile(r'((?:class|label)_embedding)\.embedding$')
+# The image encoder's convolutions: each holds the reference's
+# resample_filter.
+_ENCODER_CONV = re.compile(r'(emb\.(?:conv\d+|shortcut))\.weight$')
+
+
+def _conditioning_key(key: str) -> str:
+    key = _ENCODER_NORM.sub(
+        lambda m: f'{m.group(1)}.' + ('weight' if m.group(2) == 'scale'
+                                      else 'bias'), key)
+    return _EMBEDDING.sub(r'\1.weight', key)
+
+
+def _add_encoder_filters(sd: Dict[str, np.ndarray]) -> None:
+    for key in list(sd):
+        m = _ENCODER_CONV.match(key)
+        if m:
+            sd[f'{m.group(1)}.resample_filter'] = _bilinear_filter()
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ''
@@ -83,8 +107,10 @@ def from_jax_params(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
                 if key.startswith(old):
                     key = new + key[len(old):]
                     break
-            key = _LAYERNORM_SCALE.sub(r'\1.weight', key)
+            key = _conditioning_key(_LAYERNORM_SCALE.sub(r'\1.weight',
+                                                         key))
             sd[key] = np.asarray(value, dtype=np.float32)
+    _add_encoder_filters(sd)
     filt = _bilinear_filter()
     owners = set()
     for key in sd:
@@ -108,8 +134,9 @@ def from_jax_discriminator(variables: Mapping[str, Any]
     """JAX Discriminator variables ({'params': tree} of numpy arrays) ->
     reference-format state dict, with the `resample_filter` buffer of
     every convolution added."""
-    sd = {key: np.asarray(value, dtype=np.float32)
+    sd = {_conditioning_key(key): np.asarray(value, dtype=np.float32)
           for key, value in _flatten(variables['params'])}
+    _add_encoder_filters(sd)
     for key in list(sd):
         m = _DISC_CONV.match(key)
         if m:
@@ -119,26 +146,33 @@ def from_jax_discriminator(variables: Mapping[str, Any]
 
 def random_discriminator_state_dict(seed: int, resolution: int, nc: int,
                                     channel_base: int = 32768,
-                                    channel_max: int = 512
+                                    channel_max: int = 512,
+                                    use_encoder: bool = False,
+                                    num_classes: Optional[int] = None
                                     ) -> Dict[str, np.ndarray]:
     """A reference-format discriminator state dict drawn from `seed`:
     standard-normal weights (divided by the mapping's lr multiplier 0.01,
-    as the reference initializes them), small random biases."""
+    as the reference initializes them), small random biases; with
+    `use_encoder` or `num_classes` also the image encoder (instance-free,
+    as D's is) or the label embedding."""
+    from nerf_from_image_tpu_torch.models.discriminator import Discriminator
     rng = np.random.default_rng(seed)
-    shapes = stylegan.DiscriminatorBackbone(
-        13, resolution, nc, channel_base=channel_base,
-        channel_max=channel_max).state_dict()
+    shapes = Discriminator(resolution, nc, False, use_encoder=use_encoder,
+                           num_classes=num_classes,
+                           channel_base=channel_base,
+                           channel_max=channel_max,
+                           device='meta').state_dict()
     sd = {}
     for key, value in shapes.items():
         if key.endswith('resample_filter'):
-            sd[f'backbone.{key}'] = _bilinear_filter()
+            sd[key] = _bilinear_filter()
             continue
         draw = rng.standard_normal(tuple(value.shape))
         if key.endswith('bias'):
             draw = draw * 0.1
-        elif key.startswith('mapping.'):
+        elif key.startswith('backbone.mapping.'):
             draw = draw / 0.01
-        sd[f'backbone.{key}'] = draw.astype(np.float32)
+        sd[key] = draw.astype(np.float32)
     return sd
 
 

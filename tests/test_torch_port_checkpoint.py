@@ -19,6 +19,8 @@ A tiny generator (latent 16, 32^2 planes, channel_base 1024, four
 attention values) and a tiny SegFormer keep it quick, on the CPU.
 """
 
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +45,13 @@ CFG = gan.GANConfig(resolution=16, latent_dim=16, depth_samples_per_ray=4,
 TINY = dict(depths=(1, 1, 1, 1), embed_dims=(8, 8, 16, 16),
             num_heads=(1, 1, 2, 2), sr_ratios=(2, 1, 1, 1), head_width=16)
 EMA_RENDER_TOL = 1e-5
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """Each test's directory, removed after it: its checkpoints are large."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _trained_state(seed=0):

@@ -28,6 +28,7 @@ noise, orthographic cameras) and carla (the view-direction mapper).
 import dataclasses
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -115,7 +116,9 @@ def assets(tmp_path_factory):
                        str(root / 'weights_jax' / 'lpips.npz'))
     save_npz_variables(torch_convert.convert_inception(inc),
                        str(root / 'weights_jax' / 'inception.npz'))
-    return root
+    yield root
+    # The module's runs write checkpoints of hundreds of MB here.
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _report(root, name, cfg_string):

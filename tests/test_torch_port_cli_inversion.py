@@ -102,7 +102,9 @@ def assets(tmp_path_factory):
                        str(root / 'weights_jax' / 'lpips.npz'))
     save_npz_variables(torch_convert.convert_inception(inc),
                        str(root / 'weights_jax' / 'inception.npz'))
-    return root
+    yield root
+    # The module's runs write checkpoints of hundreds of MB here.
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _weights_into(assets, root, kind, with_fid):
@@ -271,9 +273,11 @@ def test_encoder_load_or_train(assets, monkeypatch, capsys):
 @pytest.mark.parametrize('extra,match', [
     (['--run_inversion', '--mesh_shape', 'data:2'], 'several cards'),
     (['--run_inversion', '--multihost'], 'several cards'),
-    (['--run_inversion', '--perturb_poses', '0.1'], 'flag-only modes'),
-    (['--run_inversion', '--use_encoder'], 'flag-only modes'),
-    (['--run_inversion', '--attention_values', '0'], 'flag-only modes'),
+    # GAN training's flag-only modes are ported: only several cards are
+    # refused.
+    (['--run_inversion', '--mesh_shape', 'data:4'], 'several cards'),
+    (['--run_inversion', '--mesh_shape', 'data:1,rays:2'], 'several cards'),
+    (['--run_inversion', '--multihost', '--use_encoder'], 'several cards'),
 ])
 def test_unported_branches_raise(extra, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -234,7 +234,9 @@ def assets(tmp_path_factory):
                    str(root / 'port' / 'weights' / name))
     save_npz_variables(torch_convert.convert_lpips(vgg, lin),
                        str(root / 'jax' / 'weights' / 'lpips.npz'))
-    return root
+    yield root
+    # The module's runs write checkpoints of hundreds of MB here.
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _demos(assets, extra, tag):

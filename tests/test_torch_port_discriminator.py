@@ -165,6 +165,10 @@ def test_discriminator_needs_cuda_unless_asked_and_refuses_unported_modes():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA'):
             Discriminator(nc=3, camera_flipped=False, **D_KWARGS)
-    with pytest.raises(NotImplementedError):
-        Discriminator(nc=3, camera_flipped=False, use_encoder=True,
-                      device='cpu', **D_KWARGS)
+    # The conditionings are ported: what the port still refuses is a
+    # channel count the reference never builds.
+    disc = Discriminator(nc=3, camera_flipped=False, use_encoder=True,
+                         device='cpu', **D_KWARGS)
+    assert list(disc.state_dict())[0].startswith('emb.')
+    with pytest.raises(ValueError, match='nc must be 3 or 4'):
+        Discriminator(nc=5, camera_flipped=False, device='cpu', **D_KWARGS)

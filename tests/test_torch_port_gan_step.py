@@ -216,11 +216,19 @@ def test_discriminator_after_three_steps_matches_jax(trajectories):
 
 
 def test_steps_reject_unported_modes():
-    cfg = gan.GANConfig(**dict(CFG, path_length_regularization=True))
-    with pytest.raises(NotImplementedError):
-        gan.g_step(None, {}, cfg)
-    with pytest.raises(NotImplementedError):
-        gan.d_step(None, {}, {}, gan.GANConfig(**dict(CFG, use_class=True)))
+    """Every mode is ported; the G step refuses only the recon modes
+    without an encoder, which leave no discriminator for its second pass,
+    or under supervise_alpha (JAX's G step fails in both:
+    test_torch_port_flag_steps_recon.py), while the D step, with no
+    discriminator to train, only counts."""
+    cfg = gan.GANConfig(**dict(CFG, dual_discriminator=True,
+                               dual_discriminator_l1=True))
+    state = gan.init_train_state(cfg, device='cpu')
+    assert state.disc is None and state.disc2 is None
+    with pytest.raises(ValueError, match='no discriminator'):
+        gan.g_step(state, {}, cfg)
+    assert gan.d_step(state, {}, {}, cfg) == {'sign_real': 0.0}
+    assert state.iteration == 1
 
 
 def test_init_train_state_needs_cuda_unless_asked_for_cpu():

@@ -37,6 +37,7 @@ import dataclasses
 import functools
 import json
 import os
+import shutil
 import types
 
 import jax
@@ -254,14 +255,17 @@ def test_eval_fid_full_inception(eval_setup, parity):
 
 
 def test_evaluator_refuses_encoder_and_class_modes(eval_setup):
+    """The encoder and class modes are ported: the evaluator builds in
+    both (their evaluations: test_torch_port_flag_eval.py), with the test
+    split's latents only when it has a test split."""
     s = eval_setup
     for flag in ('use_encoder', 'use_class'):
-        with pytest.raises(NotImplementedError, match='flag-only modes'):
-            port_eval.GANEvaluator(
-                s['cfg'], DATASET_CONFIG, 'p3d_car',
-                loaders.DatasetSplit(**s['train']),
-                loaders.DatasetSplit(**s['train_eval']), device='cpu',
-                **{flag: True})
+        evaluator = port_eval.GANEvaluator(
+            s['cfg'], DATASET_CONFIG, 'p3d_car',
+            loaders.DatasetSplit(**s['train']),
+            loaders.DatasetSplit(**s['train_eval']), device='cpu',
+            **{flag: True})
+        assert getattr(evaluator, flag) and evaluator.z_fid_test is None
 
 
 # ---- The training CLI -----------------------------------------------------
@@ -292,7 +296,9 @@ def cli_data(tmp_path_factory):
     root = tmp_path_factory.mktemp('train_cli')
     fixtures.write_p3d_car(str(root / 'data'), n_train=6, n_test=2,
                            size=(48, 40), seed=0)
-    return root
+    yield root
+    # The module's runs write checkpoints of hundreds of MB here.
+    shutil.rmtree(root, ignore_errors=True)
 
 
 class Calls:
@@ -530,9 +536,11 @@ def test_float32_on_the_card_is_not_refused(monkeypatch):
 
 @pytest.mark.parametrize('extra,match', [
     (['--profile_trace_at', '5'], 'several cards'),
-    (['--dual_discriminator'], 'flag-only modes'),
-    (['--path_length_regularization'], 'flag-only modes'),
-    (['--use_class'], 'flag-only modes'),
+    # GAN training's flag-only modes are ported: only several cards and
+    # the profiler are refused.
+    (['--dual_discriminator', '--mesh_shape', 'data:2'], 'several cards'),
+    (['--path_length_regularization', '--multihost'], 'several cards'),
+    (['--use_class', '--profile_trace_at', '1'], 'several cards'),
 ])
 def test_unported_training_branches_raise(extra, match):
     from nerf_from_image_tpu_torch.cli import run as cli_run

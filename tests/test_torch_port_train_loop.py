@@ -21,6 +21,7 @@ Everything runs in float32 on the CPU, on one torch thread (see
 """
 
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -77,6 +78,13 @@ class Injector:
         self.indices.append(np.asarray(idx).copy())
         batch.update(self.convert_batch(self.extras(k)))
         return idx, batch
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """Each test's directory, removed after it: its checkpoints are large."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _loop_split(package_loaders):
