@@ -199,6 +199,7 @@ import statistics
 import subprocess
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -359,6 +360,12 @@ TRAIN_CLI_ITERS = (4, 8)
 # The fresh run's SDF pretraining steps (the CLI's 1000 cut to keep the
 # script within its time; pretrain_phase times the step itself).
 TRAIN_CLI_PRETRAIN_STEPS = 100
+# --profile_trace_at on the resume: the G step of this (even) iteration is
+# traced into one Chrome trace under gan_logs/<name>/trace/, which must
+# hold B1's and B4's launches by their CUDA function names.
+TRAIN_CLI_TRACE_AT = 6
+TRACE_KERNELS = {'triplane_sample': 'triplane_sample_kernel',
+                 'triplane_sample_grad_planes': 'grad_planes_tiles_kernel'}
 TRAIN_CLI_G = {'triplane_sample': 2, 'triplane_sample_grad_planes': 2}
 TRAIN_CLI_D = {'triplane_sample': 2}
 TRAIN_CLI_EVAL = {'triplane_sample': 8, 'triplane_sample_grad': 2}
@@ -398,6 +405,21 @@ DATASET_EVAL_LAUNCHES = {'cub': {'triplane_sample_fused': 4},
 DATASET_G = TRAIN_CLI_G
 DATASET_D = TRAIN_CLI_D
 CUB_SCALE = 0.6  # the orthographic step check's camera scale s
+# SRN ShapeNet and ImageNet through both CLIs at full width, as cub and
+# carla: shapenet_cars' fixture holds one train and one test object of 8
+# views each (128^2 RGBA on white, SRN's focal and principal point), so
+# the test-set protocol inverts one batch of 8 with the pose frozen
+# (--inv_no_optimize_pose) and reports the novel views (`*_random`) and
+# no IoU; imagenet_car's holds 8 JPEG images (the train-split protocol:
+# the uncropped image inverted, its bbox crop evaluated, the 2x images
+# under ADA). Launches as cub's: the steps CLI_STEP_LAUNCHES (B2 still
+# runs with the pose frozen: its gradient is taken and zeroed, as JAX
+# does), each evaluation B5a 4, G B1 2 + B4 2, D B1 2.
+FAMILY_DATASETS = ('shapenet_cars', 'imagenet_car')
+FAMILY_IMAGE_HW = {'shapenet_cars': 128, 'imagenet_car': (240, 320)}
+FAMILY_EVAL_LAUNCHES = {'triplane_sample_fused': 4}
+FAMILY_POSE = ('R', 's', 't2', 'z0')
+FAMILY_R_PROJECT_ATOL = 2.4e-7  # two float32 places at 1
 # GAN training's flag-only modes through the training CLI at full width,
 # each resumed from a reference-format checkpoint of its configuration:
 # carla with the encoder, dual discriminators and path-length
@@ -2632,11 +2654,7 @@ def float32_phase(lpips: LPIPS) -> None:
     gen.eval()
     target, _, gt_cam, init = inversion_problem(gen)
 
-    def plain(planes_cl, coords):
-        return triplane_cuda.sample_bf16_planes(
-            planes_cl, coords, triplane.sample_triplane_plain,
-            triplane.sample_triplane_grad_plain,
-            triplane.sample_triplane_grad_planes_plain)
+    plain = plain_bf16_rounded
 
     with torch.no_grad():
         reset_counts()
@@ -2763,6 +2781,7 @@ def train_cli_phase(assets: dict, rows: dict) -> None:
     try:
         for extra in (['--iterations', str(TRAIN_CLI_ITERS[0])],
                       ['--iterations', str(TRAIN_CLI_ITERS[1]),
+                       '--profile_trace_at', str(TRAIN_CLI_TRACE_AT),
                        '--resume_from', None]):
             if extra[-1] is None:
                 extra[-1] = os.path.basename(runs[0]['out']['checkpoint_dir'])
@@ -2847,6 +2866,7 @@ def train_cli_phase(assets: dict, rows: dict) -> None:
     if missing:
         raise AssertionError(f'images not logged: {sorted(missing)}')
 
+    trace = trace_check(os.path.join(resumed['out']['log_dir'], 'trace'))
     evaluator = fresh['out']['evaluator']
     check = train_normals_check(fresh['out']['state'].gen_ema, evaluator)
     for name, key in ((triplane_cuda.KERNEL, 'triplane_sample'),
@@ -2864,7 +2884,31 @@ def train_cli_phase(assets: dict, rows: dict) -> None:
          eval_seconds=evaluator.times,
          scalars={f'{t}@{s}': v for (t, s), v in logged.items()},
          images=sorted(f'{t}@{s}' for t, s in images),
-         normals_check=check)
+         normals_check=check, profile_trace=trace)
+
+
+def trace_check(trace_dir: str) -> dict:
+    """The training CLI's --profile_trace_at output: exactly one Chrome
+    trace in `trace_dir` (no other iteration left one), whose kernel
+    events hold B1's and B4's launches of the traced G step (at least
+    TRAIN_CLI_G of each) by their CUDA function names."""
+    files = sorted(os.listdir(trace_dir))
+    if len(files) != 1 or not files[0].endswith('.json'):
+        raise AssertionError(f'trace files: {files}')
+    path = os.path.join(trace_dir, files[0])
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    found = {key: sum(name in e.get('name', '') for e in kernels)
+             for key, name in TRACE_KERNELS.items()}
+    for key, n in found.items():
+        if n < TRAIN_CLI_G[key]:
+            raise AssertionError(f'trace {files[0]}: {n} launches of '
+                                 f'{TRACE_KERNELS[key]}, want at least '
+                                 f'{TRAIN_CLI_G[key]}')
+    return {'file': files[0], 'mb': os.path.getsize(path) / 1e6,
+            'kernel_events': len(kernels), 'launches': found,
+            'kernel_ms': sum(e.get('dur', 0) for e in kernels) / 1e3}
 
 
 def manual_photo(assets: dict, root: str) -> dict:
@@ -3027,22 +3071,26 @@ def dataset_gan_checkpoint(dataset: str, path: str, flags=(),
     return cfg
 
 
-def cub_step_check(gan_path: str, lpips: LPIPS) -> dict:
-    """One inversion step in cub's geometry (box 2.0, black background,
-    flipped orthographic camera, no z0; the float32 generator with
-    StyleGAN noise, as the CLI inverts) through B1, B2 and B3 against the
-    same step through the plain versions (the planes rounded to bf16 at
-    the same boundary), with the same injected per-layer noise and crops:
-    the loss within STEP_LOSS_RTOL, the gradients of z and R within
-    STEP_GRAD_RTOL; the step's ms."""
+def dataset_step_check(what: str, gan_path: str, lpips: LPIPS,
+                       scene_range: float, stylegan_noise: bool,
+                       scale: Optional[float] = None) -> dict:
+    """One inversion step in a dataset's geometry (`scene_range` the box,
+    p3d_car's black background and flipped camera; with `scale` cub's
+    orthographic camera of that scale s and no z0, else a perspective
+    camera at z0 = log 2; the float32 generator, with StyleGAN noise as
+    `stylegan_noise` says, as the CLI inverts) through B1, B2 and B3
+    against the same step through the plain versions (the planes rounded
+    to bf16 at the same boundary), with the same injected per-layer noise
+    and crops: the loss within STEP_LOSS_RTOL, the gradients of z and R
+    within STEP_GRAD_RTOL; the step's ms."""
     dev = torch.device('cuda')
     gen = Generator(dtype=torch.float32, device=dev, seed=0,
-                    use_stylegan_noise=True,
-                    **dict(GEN_KWARGS, scene_range=2.0))
+                    use_stylegan_noise=stylegan_noise,
+                    **dict(GEN_KWARGS, scene_range=scene_range))
     convert.load_reference_state_dict(gen, checkpoint.load(gan_path)[
         'model_ema'])
     gen.eval()
-    cfg = dataclasses.replace(INV_CFG, scene_range=2.0)
+    cfg = dataclasses.replace(INV_CFG, scene_range=scene_range)
     rng = np.random.default_rng(14)
 
     def tensor(a):
@@ -3055,28 +3103,27 @@ def cub_step_check(gan_path: str, lpips: LPIPS) -> dict:
 
     quat = rng.standard_normal((BATCH, 4)) * 0.3 + [1.0, 0.0, 0.0, 0.0]
     quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+    z0 = None if scale is not None else tensor(np.full(BATCH, np.log(2.0)))
     target_params = inv.InversionParams(
-        z=latent(), R=tensor(quat), s=tensor(np.full(BATCH, CUB_SCALE)),
-        t2=tensor(rng.uniform(-0.05, 0.05, (BATCH, 2))))
+        z=latent(), R=tensor(quat),
+        s=tensor(np.full(BATCH, 1.0 if scale is None else scale)),
+        t2=tensor(rng.uniform(-0.05, 0.05, (BATCH, 2))), z0=z0)
     with torch.no_grad():
         target_out = inv.render_from_params(gen, target_params, cfg)[0]
     target, target_mask = target_out.rgb, target_out.mask
     if float(target_mask.max()) < 0.3:
-        raise AssertionError('cub step: the target sees no surface')
+        raise AssertionError(f'{what} step: the target sees no surface')
     init = inv.InversionParams(
         z=latent(), R=target_params.R, s=target_params.s * 1.05,
-        t2=target_params.t2 + 0.02)
-    noise = gen.synthesis_network.noise_values(
+        t2=target_params.t2 + 0.02, z0=None if z0 is None else z0 + 0.1)
+    noise = (gen.synthesis_network.noise_values(
         BATCH, torch.Generator(device=dev).manual_seed(15), dev)
+        if stylegan_noise else None)
     tform = augment.sample_transform(
         torch.Generator(device=dev).manual_seed(16),
         BATCH * cfg.num_augmentations, 1.0)
 
-    def plain(planes_cl, coords):
-        return triplane_cuda.sample_bf16_planes(
-            planes_cl, coords, triplane.sample_triplane_plain,
-            triplane.sample_triplane_grad_plain,
-            triplane.sample_triplane_grad_planes_plain)
+    plain = plain_bf16_rounded
 
     step = inv.make_inversion_step(gen, lpips, cfg)
     plain_step = inv.make_inversion_step(gen, lpips, cfg, sampler=plain,
@@ -3091,7 +3138,7 @@ def cub_step_check(gan_path: str, lpips: LPIPS) -> dict:
     reset_counts()
     k_loss, k_gz, k_gr = loss_and_grads(step)
     launches = counts()
-    expect_launches('cub step', launches,
+    expect_launches(f'{what} step', launches,
                     **{triplane_cuda.KERNEL: 2, triplane_cuda.GRAD_KERNEL: 2,
                        'warp_forward': 2, 'warp_backward': 1})
     p_loss, p_gz, p_gr = loss_and_grads(plain_step)
@@ -3100,8 +3147,8 @@ def cub_step_check(gan_path: str, lpips: LPIPS) -> dict:
     gr_err = float((k_gr - p_gr).norm() / p_gr.norm())
     if (loss_err > STEP_LOSS_RTOL or gz_err > STEP_GRAD_RTOL or
             gr_err > STEP_GRAD_RTOL):
-        raise AssertionError(f'cub step with the kernels differs from the '
-                             f'plain step: loss {loss_err}, grad z '
+        raise AssertionError(f'{what} step with the kernels differs from '
+                             f'the plain step: loss {loss_err}, grad z '
                              f'{gz_err}, grad R {gr_err}')
     params = init.copy(requires_grad=True)
     optimizer = inv.make_optimizer(params, cfg)
@@ -3257,8 +3304,9 @@ def datasets_phase(assets: dict, lpips: LPIPS) -> None:
                                     for k in ('psnr', 'ssim', 'lpips')}
                              for step in (0, CLI_STEPS)}}
 
-    summary['cub']['step_check'] = cub_step_check(
-        os.path.join(base, 'gan_cub.pth'), lpips)
+    summary['cub']['step_check'] = dataset_step_check(
+        'cub', os.path.join(base, 'gan_cub.pth'), lpips, 2.0, True,
+        CUB_SCALE)
     carla = results['carla']
     args = port_config.parse_args(['--dataset', 'carla', '--data_path',
                                    carla['data']])
@@ -3271,11 +3319,168 @@ def datasets_phase(assets: dict, lpips: LPIPS) -> None:
     return {dataset: res['data'] for dataset, res in results.items()}
 
 
+def families_phase(assets: dict, lpips: LPIPS) -> None:
+    """shapenet_cars and imagenet_car through both CLIs at full width
+    (FAMILY_DATASETS): the inversion CLI (one batch of 8, 30 steps,
+    evaluations at 0 and 30, no Inception file) and the training CLI
+    resumed from a reference-format checkpoint at iteration 12,500 for
+    one G step and one D step at batch 32. Launches are counted around
+    every step and evaluation; every report row must be finite, ShapeNet's
+    report must hold the novel views and no IoU and its pose must leave
+    the 30 steps unchanged. Then imagenet_car's inversion step and
+    shapenet_cars' G step (its principal point in every batch) against
+    the plain versions. Prints each dataset's seconds and peak memory."""
+    started = time.perf_counter()
+    base = os.path.join(os.path.dirname(assets['root']), 'families')
+    weights_dir = os.path.join(base, 'weights')
+    os.makedirs(weights_dir)
+    for name in weights.LPIPS_FILES:  # no Inception file: FID off
+        os.symlink(os.path.join(assets['root'], 'weights', name),
+                   os.path.join(weights_dir, name))
+    calls = []
+    originals = (inv.run_inversion, pipeline.evaluate_checkpoint,
+                 gan.g_step, gan.d_step, pretrain.pretrain_sdf,
+                 loop.train_gan)
+    for module, name, kind, fn in zip(
+            (inv, pipeline, gan, gan, pretrain),
+            ('run_inversion', 'evaluate_checkpoint', 'g_step', 'd_step',
+             'pretrain_sdf'),
+            ('steps', 'evaluation', 'g', 'd', 'pretrain'), originals):
+        setattr(module, name, counted_calls(calls, kind, fn))
+    loop.train_gan = lambda state, cfg, split, num_iters, **kwargs: (
+        originals[5](state, cfg, split, TRAIN_ITERATION + 2, **kwargs))
+    results = {}
+    try:
+        for seed, dataset in enumerate(FAMILY_DATASETS):
+            data = os.path.join(base, f'data_{dataset}')
+            t = time.perf_counter()
+            if dataset == 'shapenet_cars':
+                fixtures.write_shapenet(data, 'cars', 1, 1, DATASET_IMAGES,
+                                        DATASET_IMAGES,
+                                        FAMILY_IMAGE_HW[dataset],
+                                        seed=23 + seed)
+            else:
+                fixtures.write_imagenet(data, dataset, DATASET_IMAGES,
+                                        FAMILY_IMAGE_HW[dataset],
+                                        seed=23 + seed)
+            gan_path = os.path.join(base, f'gan_{dataset}.pth')
+            cfg = dataset_gan_checkpoint(dataset, gan_path)
+            runs = {'assets_s': time.perf_counter() - t}
+            for mode, extra in (
+                    ('inversion', ['--run_inversion', '--coord_resume_from',
+                                   assets['encoder']]),
+                    ('training', [])):
+                calls.clear()
+                reset_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = cli_run.main(['--dataset', dataset, '--resume_from',
+                                    gan_path, '--root_path', base,
+                                    '--data_path', data] + extra)
+                torch.cuda.synchronize()
+                runs[mode] = {'wall_s': time.perf_counter() - t0,
+                              'peak_gb': torch.cuda.max_memory_allocated()
+                              / 1e9, 'calls': list(calls),
+                              'total': counts(), 'out': out}
+                torch.cuda.empty_cache()
+            results[dataset] = {'cfg': cfg, 'runs': runs, 'data': data}
+    finally:
+        (inv.run_inversion, pipeline.evaluate_checkpoint, gan.g_step,
+         gan.d_step, pretrain.pretrain_sdf, loop.train_gan) = originals
+
+    want = {'steps': CLI_STEP_LAUNCHES, 'evaluation': FAMILY_EVAL_LAUNCHES,
+            'g': DATASET_G, 'd': DATASET_D}
+    kinds = {'inversion': ['evaluation', 'steps', 'evaluation'],
+             'training': ['g', 'd']}
+    summary = {}
+    for dataset, res in results.items():
+        runs = res['runs']
+        for mode in kinds:
+            run = runs[mode]
+            got = [c[0] for c in run['calls']]
+            if got != kinds[mode]:
+                raise AssertionError(f'{dataset} {mode} calls: {got}')
+            for what, _, launched in run['calls']:
+                expect_launches(f'{dataset} {mode} {what}', launched,
+                                **want[what])
+            total = {name: sum(c[2][name] for c in run['calls'])
+                     for name in run['total']}
+            if total != run['total']:
+                raise AssertionError(f'{dataset} {mode} launches '
+                                     f'{run["total"]}, per call {total}')
+        report = runs['inversion']['out']['report']
+        shapenet = dataset.startswith('shapenet')
+        keys = ['ws', 'R', 's', 't2', 'z0', 'psnr', 'ssim', 'lpips']
+        keys += (['psnr_random', 'ssim_random', 'lpips_random'] if shapenet
+                 else ['iou'])
+        for step in (0, CLI_STEPS):
+            for key in keys:
+                arr = np.asarray(report[step][key])
+                if arr.shape[0] != DATASET_IMAGES or not np.all(
+                        np.isfinite(arr)):
+                    raise AssertionError(f'{dataset} report {step}/{key}: '
+                                         f'{arr.shape}')
+            if ('iou' in report[step]) == shapenet:
+                raise AssertionError(f'{dataset}: iou in the report '
+                                     f'{"iou" in report[step]}')
+        pose_moved = {key: float(np.abs(np.asarray(report[CLI_STEPS][key]) -
+                                        np.asarray(report[0][key])).max())
+                      for key in FAMILY_POSE}
+        # Each step renormalizes the quaternion R (as JAX's does), which
+        # moves it by up to a float32 place; s, t2 and z0 stay as they are.
+        if shapenet and (pose_moved['R'] > FAMILY_R_PROJECT_ATOL or any(
+                pose_moved[k] for k in FAMILY_POSE if k != 'R')):
+            raise AssertionError(f'{dataset}: the frozen pose moved '
+                                 f'{pose_moved}')
+        state = runs['training']['out']['state']
+        if (state.iteration != TRAIN_ITERATION + 2 or
+                runs['training']['out']['pretrained']):
+            raise AssertionError(f'{dataset} training: iteration '
+                                 f'{state.iteration}')
+        step_ms = {kind: [c[1] for c in runs[mode]['calls'] if c[0] == kind]
+                   for mode in kinds for kind in set(kinds[mode])}
+        summary[dataset] = {
+            'assets_s': runs['assets_s'],
+            'config': {k: v for k, v in dataclasses.asdict(res['cfg']).items()
+                       if k in ('scene_range', 'white_background',
+                                'camera_flipped', 'supervise_alpha',
+                                'is_highres', 'augment_p_max', 'batch_size',
+                                'resolution')},
+            'inversion_wall_s': runs['inversion']['wall_s'],
+            'inversion_batch': runs['inversion']['out']['batches'][0],
+            'steps_ms_per_step': step_ms['steps'][0] / CLI_STEPS,
+            'evaluation_ms': step_ms['evaluation'],
+            'training_wall_s': runs['training']['wall_s'],
+            'g_ms': step_ms['g'], 'd_ms': step_ms['d'],
+            'peak_gb': {m: runs[m]['peak_gb'] for m in kinds},
+            'launches': {m: [(c[0], c[2]) for c in runs[m]['calls']]
+                         for m in kinds},
+            'pose_moved': pose_moved,
+            'report_means': {step: {k: float(np.mean(report[step][k]))
+                                    for k in keys[5:]}
+                             for step in (0, CLI_STEPS)}}
+
+    summary['imagenet_car']['step_check'] = dataset_step_check(
+        'imagenet_car', os.path.join(base, 'gan_imagenet_car.pth'), lpips,
+        1.4, False)
+    shapenet = results['shapenet_cars']
+    args = port_config.parse_args(['--dataset', 'shapenet_cars',
+                                   '--data_path', shapenet['data']])
+    train_split = loaders.load_dataset(args)[1]
+    summary['shapenet_cars']['g_step_check'] = gan_step_check(
+        'shapenet_cars', shapenet['runs']['training']['out']['state'],
+        shapenet['cfg'], train_split, FLAG_BATCHES, DATASET_G)
+    emit('families', started, images=DATASET_IMAGES,
+         image_hw=FAMILY_IMAGE_HW, **summary)
+
+
 def step_batches(state: gan.GANTrainState, cfg: gan.GANConfig,
                  split, seed: int, b: int) -> dict:
     """G's batch and second poses, D's real, fake, second real and second
-    fake batches of `b` of the split's views, every draw injected (the
-    path length's noise too), for the step checks."""
+    fake batches of `b` of the split's views (with their principal
+    points where the split has them), every draw injected (the path
+    length's noise too), for the step checks."""
     dev = torch.device('cuda')
     gen_t = torch.Generator(device=dev).manual_seed(seed)
     rng = np.random.default_rng(seed)
@@ -3288,9 +3493,10 @@ def step_batches(state: gan.GANTrainState, cfg: gan.GANConfig,
             'image': torch.from_numpy(np.ascontiguousarray(
                 split.images[idx], np.float32)).to(dev),
             'aug_tform': augment.sample_transform(gen_t, b, 0.5)}
-        if split.focal_length is not None:
-            out['focal'] = torch.from_numpy(np.ascontiguousarray(
-                split.focal_length[idx], np.float32)).to(dev)
+        for key, name in (('focal', 'focal_length'), ('center', 'center')):
+            if getattr(split, name) is not None:
+                out[key] = torch.from_numpy(np.ascontiguousarray(
+                    getattr(split, name)[idx], np.float32)).to(dev)
         if latent:
             out['z'] = torch.randn((b, cfg.latent_dim), generator=gen_t,
                                    device=dev)
@@ -3324,6 +3530,131 @@ WRONG_SAMPLERS = {
     'zeros': lambda planes_cl, coords: triplane.plain_sampler(
         planes_cl * 0, coords),
 }
+
+
+def plain_bf16_rounded(planes_cl: torch.Tensor,
+                       coords: torch.Tensor) -> torch.Tensor:
+    """The plain sampler on the planes rounded to bf16, its output rounded
+    to bf16, as `triplane_cuda.sample_bf16_planes` rounds the kernels'."""
+    return triplane_cuda.sample_bf16_planes(
+        planes_cl, coords, triplane.sample_triplane_plain,
+        triplane.sample_triplane_grad_plain,
+        triplane.sample_triplane_grad_planes_plain)
+
+
+def _sample_reordered(planes_cl: torch.Tensor,
+                      coords: torch.Tensor) -> torch.Tensor:
+    """`triplane.sample_triplane_plain` with its 12 weighted taps summed
+    one by one in reverse order: the same function in float32, rounded to
+    the planes' dtype at the end, differing only in summation order."""
+    b, _, _, _, c = planes_cl.shape
+    n = coords.shape[1]
+    table = planes_cl.reshape(-1, c)
+    out = torch.empty((b, n, c), dtype=planes_cl.dtype,
+                      device=planes_cl.device)
+    for start in range(0, n, triplane.CHUNK_POINTS):
+        pts = coords[:, start:start + triplane.CHUNK_POINTS]
+        rows, weights = triplane.tap_offsets(planes_cl, pts)
+        taps = table.index_select(0, rows.reshape(-1)).float().reshape(
+            rows.shape + (c,)) * weights[..., None]
+        acc = taps[:, :, 2, 3]
+        for p, t in reversed([(p, t) for p in range(3) for t in range(4)]
+                             [:-1]):
+            acc = acc + taps[:, :, p, t]
+        out[:, start:start + triplane.CHUNK_POINTS] = (acc / 3.0).to(
+            out.dtype)
+    return out
+
+
+def plain_reordered(planes_cl: torch.Tensor,
+                    coords: torch.Tensor) -> torch.Tensor:
+    """A control for the step checks: the plain sampler with another
+    summation order (forward), its backward the plain one's."""
+    return triplane.TriplaneSample.apply(
+        planes_cl, coords, _sample_reordered,
+        triplane.sample_triplane_grad_plain,
+        triplane.sample_triplane_grad_planes_plain)
+
+
+# Readings beside each GAN step check's: how far samplers that differ from
+# the plain one only in rounding part from it (ROADMAP C's D-step gap).
+CONTROL_SAMPLERS = {'bf16_rounded_plain': plain_bf16_rounded,
+                    'reordered_plain': plain_reordered}
+
+
+def _tensor_gap(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """How far `a` parts from `b`: the share of entries that differ, the
+    largest difference, the relative L2 distance and, for bf16 tensors,
+    the largest difference in units of b's last place."""
+    bf16 = b.dtype == torch.bfloat16
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    out = {'share_differ': float((diff > 0).float().mean()),
+           'max_abs': float(diff.max()),
+           'rel_l2': float(diff.norm() / b.norm().clamp_min(1e-30))}
+    if bf16:
+        # bf16 keeps 8 significant bits: one place of the larger of the
+        # two values is 2^(e - 7).
+        place = torch.exp2(torch.floor(torch.log2(torch.maximum(
+            a.abs(), b.abs()).clamp_min(1e-30))) - 7)
+        out['max_places'] = float((diff / place).max())
+    return out
+
+
+def d_step_bisect(state: gan.GANTrainState, cfg: gan.GANConfig,
+                  batches: dict) -> dict:
+    """The D step's fake render (D1's, without a graph), through the
+    kernels, the plain sampler and the controls, with every tensor on its
+    way to D recorded: the sampler's features (each pass), the decoded
+    SDF, sigma and D's input (the composite and its mask). For each
+    sampler, how far each tensor parts from the plain sampler's; the
+    first tensor in that order that parts is where the gap starts."""
+    gen = state.gen
+    samplers = {'kernels': triplane_cuda.sample_triplane,
+                'plain': triplane.plain_sampler, **CONTROL_SAMPLERS}
+    order = ('features', 'sdf', 'sigma', 'd_input')
+    records = {}
+    original_sigma = gen.sdf_to_sigma
+    for name, sampler in samplers.items():
+        rec = {k: [] for k in order}
+
+        def recording_sampler(planes_cl, coords, sampler=sampler, rec=rec):
+            out = sampler(planes_cl, coords)
+            rec['features'].append(out.detach())
+            return out
+
+        def recording_sigma(density_or_distance, out_of_bounds_mask,
+                            rec=rec):
+            rec['sdf'].append(density_or_distance[..., -1].detach())
+            sigma = original_sigma(density_or_distance, out_of_bounds_mask)
+            rec['sigma'].append(sigma.detach())
+            return sigma
+
+        gen.sdf_to_sigma = recording_sigma
+        try:
+            with torch.no_grad():
+                img = gan._render_fake(state, batches['fake'], cfg,
+                                       recording_sampler, True)[0]
+        finally:
+            del gen.sdf_to_sigma
+        rec['d_input'].append(img.detach())
+        records[name] = rec
+    out = {}
+    for name in samplers:
+        if name == 'plain':
+            continue
+        gaps = {}
+        for key in order:
+            pairs = list(zip(records[name][key], records['plain'][key]))
+            gaps[key] = [_tensor_gap(a, b) for a, b in pairs]
+        first = next((k for k in order
+                      if any(g['share_differ'] > 0 for g in gaps[k])), None)
+        out[name] = {'first_to_part': first, **gaps}
+    feats = records['kernels']['features'][0]
+    out['features_dtype'] = str(feats.dtype)
+    del records
+    torch.cuda.empty_cache()
+    return out
 
 
 def gan_step_check(what: str, state: gan.GANTrainState, cfg: gan.GANConfig,
@@ -3456,10 +3787,18 @@ def gan_step_check(what: str, state: gan.GANTrainState, cfg: gan.GANConfig,
                 if not all(map(fails, wrong.values())):
                     raise AssertionError(f'{what} {name}: the check passes '
                                          f'a wrong kernel: {wrong}')
+                controls = {}
+                for k, sampler in CONTROL_SAMPLERS.items():
+                    control = fn(batches, sampler)[0]
+                    controls[k] = {'vs_plain': errors(control, plain),
+                                   'kernels_vs_it': errors(kernels, control)}
                 out[name] = {'launches': launches, 'loss_kernels': kernels[0],
                              'loss_plain': plain[0], **errs,
-                             'repeat': repeat, 'wrong_kernels': wrong}
-                del kernels, plain
+                             'repeat': repeat, 'wrong_kernels': wrong,
+                             'controls': controls}
+                del kernels, plain, control
+                if name == 'd_step':
+                    out[name]['bisect'] = d_step_bisect(state, cfg, batches)
         except torch.cuda.OutOfMemoryError as e:
             out_of_memory[b] = str(e).splitlines()[0]
             del batches
@@ -3829,6 +4168,8 @@ def main() -> None:
         demo_phase(assets)
         torch.cuda.empty_cache()
         dataset_dirs = datasets_phase(assets, lpips)
+        torch.cuda.empty_cache()
+        families_phase(assets, lpips)
         torch.cuda.empty_cache()
         flag_modes_phase(assets, dataset_dirs, rows, inv_gen, lpips)
     torch.cuda.empty_cache()

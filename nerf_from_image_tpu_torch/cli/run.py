@@ -47,10 +47,14 @@ reconstruction loss in D1's place), --path_length_regularization,
 poses moved to neighbours at load, the train-eval split's with them when
 the two splits hold the same views).
 
+--profile_trace_at N (an even N) traces the G step of iteration N into
+one Chrome trace under `gan_logs/<name>/trace/` (`utils/profiling.py`;
+open it in Perfetto or chrome://tracing), as the JAX CLI traces it.
+
 It runs on the card (`main(argv, device='cpu')` on the CPU, as the tests
 call it). Not ported yet, and refused with NotImplementedError before any
 work, naming its item of ROADMAP queue A (several cards): more than one
-device (--mesh_shape, --multihost) and --profile_trace_at.
+device (--mesh_shape, --multihost).
 """
 
 from __future__ import annotations
@@ -77,19 +81,6 @@ from nerf_from_image_tpu_torch.utils.logging import SummaryWriter
 
 # A run's own latest checkpoint resumes it only from this iteration on.
 AUTO_RESUME_MIN_ITERATION = 12500
-
-
-def check_ported(args) -> None:
-    """Raises NotImplementedError, naming the ROADMAP item, for every
-    branch and feature a later slice ports (`args` after the dataset's
-    overrides)."""
-    def refuse(what, item):
-        raise NotImplementedError(f'{what} is not ported yet (ROADMAP '
-                                  f'queue A: {item})')
-
-    config_lib.check_single_device(args)
-    if not args.run_inversion and args.profile_trace_at > 0:
-        refuse('--profile_trace_at (utils/profiling)', 'several cards')
 
 
 def make_gan_config(args, dataset_config: dict,
@@ -139,7 +130,7 @@ def main(argv=None, device: DeviceLike = None):
     # idempotent); here they let an unported branch raise before any work.
     experiment_name = config_lib.suggest_experiment_name(args)
     config_lib.override_default_args(args)
-    check_ported(args)
+    config_lib.check_single_device(args)
     device = resolve_device(device)
     if device.type == 'cuda':
         # float32 stays float32 (the inversion's generator, the encoder,
@@ -288,7 +279,9 @@ def run_training(args, cfg: gan_lib.GANConfig, dataset_config: dict,
     loop_lib.train_gan(
         state, cfg, train_split, args.iterations, writer=writer,
         ckpt_manager=ckpt, eval_fn=eval_fn, host_state=host_state,
-        host_state_extra=lambda: {'best_fid': evaluator.best_fid})
+        host_state_extra=lambda: {'best_fid': evaluator.best_fid},
+        profile_trace_at=args.profile_trace_at,
+        trace_dir=os.path.join(log_dir, 'trace'))
     # As the JAX CLI's final save: the state without the loop's host state.
     ckpt.save(ckpt_lib.gan_checkpoint(state), 'latest')
     writer.close()

@@ -4,11 +4,12 @@
 pytorch-fid's `FIDInceptionA/C/E` topology on torchvision's InceptionV3:
 the A, C and E blocks average-pool without counting the padding, and the
 last E block (Mixed_7c) max-pools in its pool branch. Input (B, 3, H, W)
-in [0, 1], resized to 299^2 (bilinear, half-pixel centres, as
-`jax.image.resize` resizes up) and scaled to [-1, 1]; output the (B, 2048)
-pooled activations. Module names are pytorch-fid's state-dict keys
-(`Conv2d_1a_3x3.conv.weight`, `Mixed_5b.branch1x1.bn.running_mean`, ...),
-the keys `nerf_from_image_tpu/utils/torch_convert.convert_inception` reads,
+in [0, 1] of any size, resized to 299^2 as `jax.image.resize` resizes
+(bilinear, half-pixel centres, antialiased down) and scaled to [-1, 1];
+output the (B, 2048) pooled activations. Module names are pytorch-fid's
+state-dict keys (`Conv2d_1a_3x3.conv.weight`,
+`Mixed_5b.branch1x1.bn.running_mean`, ...), the keys
+`nerf_from_image_tpu/utils/torch_convert.convert_inception` reads,
 so one reference-format state dict feeds both packages. Batch norm is
 inference-only (eps 1e-3) and computed as the JAX package computes it.
 The convolutions run in cuDNN (the JAX package leaves them to XLA).
@@ -173,21 +174,21 @@ class InceptionE(nn.Module):
 
 
 def resize_bilinear(x: torch.Tensor, size: int) -> torch.Tensor:
-    """(B, C, H, W) -> (B, C, size, size), bilinear with half-pixel
-    centres and edge clamping, no antialiasing: `jax.image.resize`'s
-    'bilinear' for a resize up (or to the same size)."""
+    """(B, C, H, W) -> (B, C, size, size), `jax.image.resize`'s 'bilinear'
+    (antialias on): bilinear with half-pixel centres and edge clamping
+    for a resize up, and for a resize down along an axis the triangle
+    filter widened by the scale (antialiased), as
+    `F.interpolate(..., antialias=True)` computes it."""
     if x.shape[-2:] == (size, size):
         return x
-    if x.shape[-2] > size or x.shape[-1] > size:
-        raise NotImplementedError('resizing down (antialiased in '
-                                  'jax.image.resize) is not ported')
+    down = x.shape[-2] > size or x.shape[-1] > size
     return F.interpolate(x, size=(size, size), mode='bilinear',
-                         align_corners=False, antialias=False)
+                         align_corners=False, antialias=down)
 
 
 class InceptionV3FID(nn.Module):
-    """(B, 3, H, W) in [0, 1], H and W at most 299 -> (B, 2048) float32
-    pool3 activations.
+    """(B, 3, H, W) in [0, 1], any H and W (resized to 299^2 by
+    `resize_bilinear`) -> (B, 2048) float32 pool3 activations.
 
     Parameters and statistics start at identity batch norms; a
     reference-format state dict (`utils.convert.random_inception_state_dict`

@@ -322,16 +322,19 @@ def generator_forward(gen: Generator, z: torch.Tensor, pose: torch.Tensor,
                       rng: torch.Generator, requests: Sequence[str] = (),
                       noise: Optional[Dict[str, torch.Tensor]] = None,
                       sampler: Sampler = triplane_cuda.sample_triplane,
-                      cond: Optional[torch.Tensor] = None
+                      cond: Optional[torch.Tensor] = None,
+                      center: Optional[torch.Tensor] = None,
+                      bbox: Optional[torch.Tensor] = None
                       ) -> Tuple[RenderOutput, Dict[str, torch.Tensor]]:
     """Maps z (with the conditioning embedding `cond`), synthesizes,
-    renders; with `requests` (regularizers of `Generator.sdf_losses`),
-    also runs those. `noise` replaces the draws of `rng` with the
-    injected arrays it holds ('sg_noise', the per-layer StyleGAN noise,
-    outermost layer first; 'depth', 'pdf_u' for the render; 'strata',
-    'perturb' for the regularizers). A noise-enabled generator draws its
-    StyleGAN noise from `rng` first, then the render draws. Returns
-    (render, regularizers)."""
+    renders (through the principal point `center` and the crop `bbox` of
+    the batch, where it has them); with `requests` (regularizers of
+    `Generator.sdf_losses`), also runs those. `noise` replaces the draws of
+    `rng` with the injected arrays it holds ('sg_noise', the per-layer
+    StyleGAN noise, outermost layer first; 'depth', 'pdf_u' for the render;
+    'strata', 'perturb' for the regularizers). A noise-enabled generator
+    draws its StyleGAN noise from `rng` first, then the render draws.
+    Returns (render, regularizers)."""
     sg_noise = stylegan_noise(gen, z.shape[0], rng, noise)
     state = gen.synthesize(gen.map(z, cond), noise=sg_noise)
     render_rng = rng
@@ -339,8 +342,8 @@ def generator_forward(gen: Generator, z: torch.Tensor, pose: torch.Tensor,
         render_rng = {k: noise[k] for k in ('depth', 'pdf_u') if k in noise}
     out = render(gen.field(state, sampler), cfg.resolution, cfg.resolution,
                  pose, focal, cfg.scene_range, cfg.white_background,
-                 cfg.depth_samples_per_ray, rng=render_rng,
-                 fine_sampling=cfg.fine_sampling)
+                 cfg.depth_samples_per_ray, rng=render_rng, center=center,
+                 bbox=bbox, fine_sampling=cfg.fine_sampling)
     extra = {}
     if requests:
         reg_rng = rng
@@ -447,7 +450,8 @@ def generator_loss(state: GANTrainState, batch: Batch, cfg: GANConfig,
     cond = embed_condition(state.gen, cfg, batch)
     out, extra = generator_forward(state.gen, batch['z'], pose, focal, cfg,
                                    state.rng, requests, noise, sampler,
-                                   cond)
+                                   cond, batch.get('center'),
+                                   batch.get('bbox'))
     img = _image(out, cfg)
     if cfg.recon_mode:
         target = blur_image(batch['image'][..., :3].permute(0, 3, 1, 2), i,
@@ -465,7 +469,8 @@ def generator_loss(state: GANTrainState, batch: Batch, cfg: GANConfig,
         # sees the image.
         out2, _ = generator_forward(state.gen, batch['z'], pose2, focal2,
                                     cfg, state.rng, (), batch2.get('noise'),
-                                    sampler, cond)
+                                    sampler, cond, batch2.get('center'),
+                                    batch2.get('bbox'))
         disc2 = state.disc if kind2 == 'shared' else state.disc2
         logits2 = disc2(_image(out2, cfg), pose2,
                         _d_condition(cfg, batch2, see_image=False), focal2)
@@ -580,7 +585,9 @@ def _render_fake(state: GANTrainState, fake_batch: Batch, cfg: GANConfig,
             else None)
     out, _ = generator_forward(state.gen, fake_batch['z'], pose, focal, cfg,
                                state.rng, noise=fake_batch.get('noise'),
-                               sampler=sampler, cond=cond)
+                               sampler=sampler, cond=cond,
+                               center=fake_batch.get('center'),
+                               bbox=fake_batch.get('bbox'))
     return _image(out, cfg), pose, focal
 
 

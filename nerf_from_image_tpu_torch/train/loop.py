@@ -28,6 +28,7 @@ import torch
 
 from nerf_from_image_tpu_torch.train import gan as gan_lib
 from nerf_from_image_tpu_torch.utils import checkpoint as ckpt_lib
+from nerf_from_image_tpu_torch.utils import profiling
 from nerf_from_image_tpu_torch.utils.io import EndlessSampler
 
 DISPLAY_EVERY = 5000
@@ -116,7 +117,8 @@ def train_gan(state: gan_lib.GANTrainState, cfg: gan_lib.GANConfig,
               train_split, num_iters: int, writer=None, ckpt_manager=None,
               eval_fn: Optional[Callable] = None, log_every: int = 100,
               seed: int = 1234, host_state: Optional[dict] = None,
-              host_state_extra: Optional[Callable[[], dict]] = None
+              host_state_extra: Optional[Callable[[], dict]] = None,
+              profile_trace_at: int = 0, trace_dir: str = ''
               ) -> gan_lib.GANTrainState:
     """Trains `state` in place from `state.iteration` to `num_iters`.
 
@@ -124,6 +126,10 @@ def train_gan(state: gan_lib.GANTrainState, cfg: gan_lib.GANConfig,
     a `utils.checkpoint.CheckpointManager`. `host_state` (a checkpoint's
     `random_state`) restores the loop's RandomState, sampler and latent
     generator; `host_state_extra()` gives the checkpoints' best_fid.
+    With `profile_trace_at` > 0 and a `trace_dir`, the G step of iteration
+    `profile_trace_at` (with its synchronisation) is traced into one
+    Chrome trace under `trace_dir` (`utils/profiling.trace`); an odd
+    iteration is a D step and traces nothing, as in the JAX loop.
     """
     device = state.gen.beta.device
     rng_np = np.random.RandomState(seed)
@@ -146,9 +152,12 @@ def train_gan(state: gan_lib.GANTrainState, cfg: gan_lib.GANConfig,
             batch = draw(latent_rng=latent_rng)
             batch2 = draw() if dual else None
             t1 = time.time()
-            metrics = gan_lib.g_step(state, batch, cfg, batch2=batch2)
-            if device.type == 'cuda':
-                torch.cuda.synchronize(device)
+            traced = bool(profile_trace_at and i == profile_trace_at and
+                          trace_dir)
+            with profiling.trace(trace_dir, traced, device):
+                metrics = gan_lib.g_step(state, batch, cfg, batch2=batch2)
+                if device.type == 'cuda':
+                    torch.cuda.synchronize(device)
         else:
             real = draw(train_sampler=train_sampler, is_highres=hires)
             fake = draw(latent_rng=latent_rng)

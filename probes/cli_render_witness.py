@@ -20,14 +20,22 @@ box's face, where the field is cut off; how a program rounds that
 sample's position decides whether it counts, so JAX against itself
 parts as far as the port parts from it.
 
+`--dataset shapenet_cars` renders in ShapeNet's geometry instead (box
+0.55, white background, unflipped camera, z0 0.0495 and the scales and
+offsets the ShapeNet CLI test's encoder gives), and `--sdf_shift` moves
+the decoder's distance output (default -1.5, the tests' surface; +0.5 is
+the thin field of `tests/test_torch_port_{shapenet,imagenet}.py`).
+
 Needs JAX and the JAX package beside the port (the CPU machine of the
 tests). About a minute on the CPU.
 
-    python3 probes/cli_render_witness.py
+    python3 probes/cli_render_witness.py [--dataset shapenet_cars]
+        [--sdf_shift 0.5]
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import pathlib
 import sys
@@ -47,15 +55,25 @@ from nerf_from_image_tpu.utils import torch_convert  # noqa: E402
 from nerf_from_image_tpu_torch.invert import optimizer as inv  # noqa: E402
 from nerf_from_image_tpu_torch.train import gan  # noqa: E402
 
-BATCH, RES, SAMPLES, BOX = 8, 32, 4, 1.4
+BATCH, RES, SAMPLES = 8, 32, 4
+# (box, white background, flipped camera, z0, range of s, range of t2)
+GEOMETRY = {'p3d_car': (1.4, False, True, 1.3884684, (0.3, 0.5), 0.2),
+            'shapenet_cars': (0.55, True, False, 0.04953393, (0.5, 1.5),
+                              1.1)}
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--dataset', choices=sorted(GEOMETRY),
+                        default='p3d_car')
+    parser.add_argument('--sdf_shift', type=float, default=-1.5)
+    args = parser.parse_args()
+    BOX, white, flipped, z0, s_range, t_range = GEOMETRY[args.dataset]
     cfg = gan.GANConfig(resolution=RES, latent_dim=512, attention_values=4,
                         plane_resolution=32, scene_range=BOX)
     gen = gan.init_train_state(cfg, device='cpu', seed=3).gen_ema
     with torch.no_grad():
-        gen.decoder.net[2].bias[0] -= 1.5
+        gen.decoder.net[2].bias[0] += args.sdf_shift
     sd = {k: v.numpy() for k, v in gen.state_dict().items()}
     variables = jax.tree_util.tree_map(jnp.asarray,
                                        torch_convert.convert_generator(
@@ -75,20 +93,20 @@ def main() -> None:
             (BATCH, 512)).astype(np.float32)))
     params = inv.InversionParams(
         z=ws / 5.0, R=torch.tensor(quat, dtype=torch.float32),
-        s=torch.tensor(rng.uniform(0.3, 0.5, BATCH), dtype=torch.float32),
-        t2=torch.tensor(rng.uniform(-0.2, 0.2, (BATCH, 2)),
+        s=torch.tensor(rng.uniform(*s_range, BATCH), dtype=torch.float32),
+        t2=torch.tensor(rng.uniform(-t_range, t_range, (BATCH, 2)),
                         dtype=torch.float32),
-        z0=torch.full((BATCH,), 1.3884684))
+        z0=torch.full((BATCH,), z0))
     port_cfg = inv.InversionConfig(resolution=RES,
                                    depth_samples_per_ray=SAMPLES,
-                                   scene_range=BOX, white_background=False,
-                                   camera_flipped=True)
+                                   scene_range=BOX, white_background=white,
+                                   camera_flipped=flipped)
     with torch.no_grad():
         port, _, _ = inv.render_from_params(gen, params, port_cfg)
     jcfg = jax_inv.InversionConfig(resolution=RES,
                                    depth_samples_per_ray=SAMPLES,
-                                   scene_range=BOX, white_background=False,
-                                   camera_flipped=True, lr_gain_z=5.0)
+                                   scene_range=BOX, white_background=white,
+                                   camera_flipped=flipped, lr_gain_z=5.0)
     jparams = jax_inv.InversionParams(**{
         name: jnp.asarray(t.numpy()) for name, t in params.named()})
     jitted, _, _ = jax.jit(lambda v, p: jax_inv.render_from_params(
@@ -96,7 +114,8 @@ def main() -> None:
     eager, _, _ = jax_inv.render_from_params(jgen, variables, jparams, jcfg)
 
     outs = {'port': port, 'jax_jit': jitted, 'jax_eager': eager}
-    print(f'{BATCH} views of {RES}x{RES}, box {BOX}; mask mean '
+    print(f'{args.dataset}: {BATCH} views of {RES}x{RES}, box {BOX}, SDF '
+          f'shift {args.sdf_shift}; mask mean '
           f'{float(port.mask.mean()):.4f}')
     for a, b in (('port', 'jax_jit'), ('port', 'jax_eager'),
                  ('jax_jit', 'jax_eager')):

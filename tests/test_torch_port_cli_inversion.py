@@ -294,7 +294,7 @@ def test_unported_branches_raise(extra, match):
 ], ids=['cub', 'imagenet_elephant', 'carla', 'cub-training',
         'imagenet_elephant-training', 'carla-training'])
 def test_dataset_features_reach_the_run(dataset, extra, monkeypatch):
-    """The other datasets' generator features pass `check_ported`: the CLI
+    """The other datasets' generator features pass the CLI's checks: the CLI
     goes on to load the dataset (which the test replaces), for the
     inversion and for training."""
     class Reached(Exception):

@@ -535,14 +535,24 @@ def test_float32_on_the_card_is_not_refused(monkeypatch):
 
 
 @pytest.mark.parametrize('extra,match', [
-    (['--profile_trace_at', '5'], 'several cards'),
-    # GAN training's flag-only modes are ported: only several cards and
-    # the profiler are refused.
+    # --profile_trace_at is ported: the CLI goes on to load the dataset.
+    (['--profile_trace_at', '5'], None),
+    # GAN training's flag-only modes are ported: only several cards are
+    # refused.
     (['--dual_discriminator', '--mesh_shape', 'data:2'], 'several cards'),
     (['--path_length_regularization', '--multihost'], 'several cards'),
-    (['--use_class', '--profile_trace_at', '1'], 'several cards'),
+    (['--use_class', '--profile_trace_at', '1'], None),
 ])
-def test_unported_training_branches_raise(extra, match):
+def test_unported_training_branches_raise(extra, match, monkeypatch):
     from nerf_from_image_tpu_torch.cli import run as cli_run
-    with pytest.raises(NotImplementedError, match=match):
+
+    class Reached(Exception):
+        pass
+
+    def stop(*args, **kwargs):
+        raise Reached
+
+    monkeypatch.setattr(cli_run.loaders, 'load_dataset', stop)
+    with pytest.raises(Reached if match is None else NotImplementedError,
+                       match=match):
         cli_run.main(['--dataset', 'p3d_car'] + extra, device='cpu')

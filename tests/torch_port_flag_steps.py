@@ -53,7 +53,18 @@ MODES = {
                     use_encoder=True),
     'dual_mse': dict(dual_discriminator=True, dual_discriminator_mse=True,
                      use_encoder=True),
+    # The datasets' training configurations (config.override_default_args):
+    # ShapeNet's white background in a box of 0.55, an unflipped camera,
+    # no ADA and an RGB-only D, with the principal point in every batch;
+    # ImageNet's ADA on the 2x real images and the mask as D's fourth
+    # channel.
+    'shapenet_cars': dict(scene_range=0.55, white_background=True,
+                          camera_flipped=False, augment_p_max=0.0),
+    'imagenet_car': dict(supervise_alpha=True, is_highres=True),
 }
+# What each dataset's batches carry beyond the images and cameras.
+VIEWS = {'shapenet_cars': dict(center=True),
+         'imagenet_car': dict(channels=4, highres=True)}
 
 
 def _cameras(rng, b):
@@ -79,35 +90,42 @@ def _render_noise(rng):
             'pdf_u': rng.random((BATCH * RES * RES, SAMPLES))}
 
 
-def _views(rng, with_latent):
-    """One sampled batch: images, cameras, classes, a transform, and with
-    a latent the latent and its render's draws."""
+def _views(rng, with_latent, channels=3, highres=False, center=False):
+    """One sampled batch: images (`channels` of them, with `highres` their
+    2x copy too), cameras, classes, a transform, with `center` a
+    principal point near the image's centre, and with a latent the latent
+    and its render's draws."""
     cam, focal = _cameras(rng, BATCH)
     out = dict(pose=cam, focal=focal,
-               image=rng.uniform(-1, 1, (BATCH, RES, RES, 3)),
+               image=rng.uniform(-1, 1, (BATCH, RES, RES, channels)),
                aug_tform=_tform(rng),
                **{'class': rng.integers(0, CLASSES, BATCH)})
     if with_latent:
         out['z'] = rng.standard_normal((BATCH, LATENT))
         out['noise'] = _render_noise(rng)
+    if highres:
+        out['image_highres'] = rng.uniform(-1, 1, (BATCH, 2 * RES, 2 * RES,
+                                                   channels))
+    if center:
+        out['center'] = 0.5 + rng.uniform(-0.05, 0.05, (BATCH, 2))
     return out
 
 
-def batches(seed):
+def batches(seed, **views):
     """Numpy batches: the G step's (with every regularizer's and the path
     length's draws) and its second poses; the D step's real, fake, second
-    real and second fake batches."""
+    real and second fake batches; `views` as `_views` takes them."""
     rng = np.random.default_rng(seed)
-    g = _views(rng, True)
+    g = _views(rng, True, **views)
     n = NSTRATA - 1
     g['noise'].update(
         strata=rng.random((BATCH, n, n, n, 3)),
         perturb=rng.standard_normal((BATCH, n ** 3, 3)),
         ppl_planes=rng.standard_normal((BATCH, 96, PLANES, PLANES)),
         ppl_attn=rng.standard_normal((BATCH, CFG['attention_values'], 3)))
-    g2 = _views(rng, True)
-    return (g, g2, _views(rng, False), _views(rng, True),
-            _views(rng, False), _views(rng, True))
+    g2 = _views(rng, True, **views)
+    return (g, g2, _views(rng, False, **views), _views(rng, True, **views),
+            _views(rng, False, **views), _views(rng, True, **views))
 
 
 def _convert(batch, to_tensor, tform_cls):
@@ -150,11 +168,11 @@ def _jax_disc(module):
         torch_convert.convert_discriminator(sd), sd, 'label_embedding'))
 
 
-def run_mode(mode, seed=7):
-    """Both packages' G step then D step of `mode`. Returns the port's and
-    JAX's metrics per step and the states after them."""
-    flags = MODES[mode]
-    cfg = gan.GANConfig(**CFG, **flags)
+def init_states(mode):
+    """The port's train state of `mode` at iteration START and JAX's from
+    the same weights, with JAX's models and optimizers."""
+    flags = {**CFG, **MODES[mode]}
+    cfg = gan.GANConfig(**flags)
     state = gan.init_train_state(cfg, device='cpu', seed=0)
     with torch.no_grad():
         # Move the surface into the box (a fresh decoder is inside the
@@ -166,7 +184,7 @@ def run_mode(mode, seed=7):
     g_sd = {k: v.numpy().copy() for k, v in state.gen.state_dict().items()}
 
     jcfg = jax_gan.GANConfig(use_pallas=False, fine_sampling=True,
-                             **CFG, **flags)
+                             **flags)
     jgen, jdisc = jax_gan.make_models(jcfg)
     disc2 = jax_gan.make_second_discriminator(jcfg)
     opt_g, opt_d = jax_gan.make_optimizers(jcfg)
@@ -185,13 +203,25 @@ def run_mode(mode, seed=7):
         augment_p=jnp.asarray(0.5), ppl_running_avg=jnp.asarray(-1.0),
         params_d2=params_d2,
         opt_d2=None if params_d2 is None else opt_d.init(params_d2))
+    return dict(cfg=cfg, state=state, jcfg=jcfg, jgen=jgen, jdisc=jdisc,
+                disc2=disc2, opt_g=opt_g, opt_d=opt_d, jstate=jstate)
+
+
+def run_mode(mode, seed=7):
+    """Both packages' G step then D step of `mode`. Returns the port's and
+    JAX's metrics per step and the states after them."""
+    init = init_states(mode)
+    cfg, state, jcfg, jstate = (init[k] for k in ('cfg', 'state', 'jcfg',
+                                                  'jstate'))
+    jgen, jdisc, disc2, opt_g, opt_d = (init[k] for k in (
+        'jgen', 'jdisc', 'disc2', 'opt_g', 'opt_d'))
     g_jit = jax.jit(lambda s, b, b2: jax_gan.g_step(
         s, b, jgen, jdisc, opt_g, jcfg, batch2=b2, disc2=disc2))
     d_jit = jax.jit(lambda s, r, f, r2, f2: jax_gan.d_step(
         s, r, f, jgen, jdisc, opt_d, jcfg, use_r1_now=True,
         blur_active=True, batch2=r2, fake_batch2=f2, disc2=disc2))
 
-    g, g2, real, fake, real2, fake2 = batches(seed)
+    g, g2, real, fake, real2, fake2 = batches(seed, **VIEWS.get(mode, {}))
     dual = cfg.dual_discriminator
     port = [gan.g_step(state, to_port(g), cfg,
                        batch2=to_port(g2) if dual else None)]
