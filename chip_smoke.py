@@ -57,7 +57,10 @@ samples):
 - the demo (`--inv_manual_input_path`) on the same fixture and files: a
   photo as RGBA (its alpha the mask) and as RGB (GrabCut's mask), each
   inverted at batch 1 and written as the strip [input | coords | recon |
-  normals | novel view];
+  normals | novel view]; and the RGB photo saved as a CMYK JPEG, read
+  through the demo's loader as three channels with no alpha mask (the
+  images are read through cv2, as the JAX package reads them; the line
+  `image_io: cv2 <version>` says so, and the run fails without cv2);
 - the other datasets' generator features through both CLIs: a cub
   fixture (StyleGAN noise, orthographic cameras) and a carla fixture (the
   view-direction mapper), each inverted in one batch of 8 and trained for
@@ -233,8 +236,10 @@ non-zero before any result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -251,6 +256,7 @@ import torch
 import torch.nn.functional as F
 
 from nerf_from_image_tpu_torch import config as port_config
+from nerf_from_image_tpu_torch.cli import demo as cli_demo
 from nerf_from_image_tpu_torch.cli import inversion as cli_inversion
 from nerf_from_image_tpu_torch.cli import run as cli_run
 from nerf_from_image_tpu_torch.core import augment
@@ -442,6 +448,10 @@ TRAIN_CLI_IMAGE_TAGS = (
 DEMO_EVAL_LAUNCHES = CLI_EVAL_LAUNCHES
 DEMO_EXPORT_LAUNCHES = {'triplane_sample': 6, 'triplane_sample_grad': 2}
 DEMO_PANELS = 5  # input | coords | recon | normals | novel view
+# The RGB photo as a quality-95 CMYK JPEG read back: its mean absolute
+# error against the photo, in [0, 1] (the CPU tests' limit; 4.7e-3 on
+# their 48 x 40 photo).
+CMYK_JPEG_LOSS = 0.02
 # The other datasets' features: cub (StyleGAN noise, orthographic
 # cameras) and carla (the view-direction mapper), each through the
 # inversion CLI (one batch of 8, no Inception file) and the training CLI
@@ -760,6 +770,15 @@ def device_phase() -> dict:
     emit('device', started, nvidia_smi=smi_line, torch=torch.__version__,
          cuda=torch.version.cuda, allow_tf32=False, **device)
     return device
+
+
+def reader_phase() -> None:
+    """The image reader: cv2, as the JAX package reads images. The card's
+    machine has it, so no read falls back to PIL."""
+    if image_io.cv2 is None:
+        raise AssertionError('image_io: no cv2; reads would fall back to '
+                             'PIL')
+    print(f'image_io: cv2 {image_io.cv2.__version__}', flush=True)
 
 
 def build_phase() -> None:
@@ -3057,6 +3076,35 @@ def manual_photo(assets: dict, root: str) -> dict:
     return paths
 
 
+def cmyk_photo_check(rgb_path: str, work: str) -> dict:
+    """The RGB photo saved as a CMYK JPEG with PIL (ImageNet's train set
+    and users' photos hold such files), read through the demo's loader:
+    three channels within JPEG loss of the photo, and a mask not taken
+    from an alpha channel (a reader that kept the four raw channels gave
+    K as the alpha)."""
+    from PIL import Image
+    rgb = image_io.read_png(rgb_path)
+    path = os.path.join(work, 'photo_cmyk.jpg')
+    Image.fromarray(rgb).convert('CMYK').save(path, quality=95)
+    channels = image_io.imread(path).shape
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        loaded = cli_demo.load_manual_image(path, 3)
+    said = said.getvalue()
+    err = np.abs(loaded['image'] - rgb / 255.0)
+    found = {'read_shape': list(channels),
+             'mean_abs_err': float(err.mean()),
+             'max_abs_err': float(err.max()),
+             'mask': ('alpha' if 'alpha channel' in said else
+                      'grabcut' if 'GrabCut' in said else
+                      'full frame' if 'full-frame' in said else said),
+             'mask_share': float(loaded['mask'].mean())}
+    if (channels != rgb.shape or found['mask'] == 'alpha' or
+            not found['mean_abs_err'] < CMYK_JPEG_LOSS):
+        raise AssertionError(f'demo CMYK photo: {found}')
+    return found
+
+
 def counted_calls(calls: list, kind: str, fn):
     """`fn`, appending (kind, ms on CUDA events, launches during the call)
     to `calls` at each call."""
@@ -3093,12 +3141,14 @@ def demo_phase(assets: dict) -> dict:
     the photo at batch 1 (30 steps, evaluations at 0 and 30) and writes
     the strip [input | coords | recon | normals | novel view]; launches
     are counted around the steps, each evaluation and the export; the
-    strip is read back. Returns the photos, the checkpoint and each
-    run's strip."""
+    strip is read back. The RGB photo as a CMYK JPEG goes through the
+    demo's loader (`cmyk_photo_check`). Returns the photos, the
+    checkpoint and each run's strip."""
     started = time.perf_counter()
     work = os.path.join(os.path.dirname(assets['root']), 'demo')
     os.makedirs(work)
     photos = manual_photo(assets, work)
+    cmyk = cmyk_photo_check(photos['rgb'], work)
     gan_path = os.path.join(work, 'gan.pth')
     checkpoint.save(move_surface_into_box(checkpoint.load(assets['gan'])),
                     gan_path)
@@ -3167,7 +3217,7 @@ def demo_phase(assets: dict) -> dict:
             'ms_by_call': [(c[0], c[1]) for c in run['calls']],
             'strip_shape': strip.shape,
             'panel_std': panels.tolist()}
-    emit('demo', started, runs=summary)
+    emit('demo', started, runs=summary, cmyk_photo=cmyk)
     return {'photos': photos, 'gan_path': gan_path,
             'strips': {kind: run['strip'] for kind, run in runs.items()}}
 
@@ -5019,6 +5069,7 @@ def several_cards_phase(assets: dict, demo: dict) -> None:
 def main() -> None:
     started = time.perf_counter()
     device = device_phase()
+    reader_phase()
     build_phase()
     rows = {}
     for r in [kernel_phase(), triplane_grad_phase(),

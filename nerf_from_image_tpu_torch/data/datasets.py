@@ -9,9 +9,9 @@ flips, the perspective pose assembly (flip @ quat-matrix, inverted to
 cam2world), CUB's orthographic scale-in-[3,3] matrices, SRN's
 intrinsics.txt + per-view pose files with the diag(1,-1,-1,1) coordinate
 flip, and CARLA's extrinsics npy files. Images are read and resized by
-`data/image_io.py` (PNG itself, JPEG through PIL; cv2's INTER_AREA in
-numpy) where the JAX package calls cv2; RLE masks decode through the
-native codec (`data/rle.py`); the estimated poses load with `torch.load`.
+`data/image_io.py` (cv2, PIL without it, as the JAX package); RLE masks
+decode through the native codec (`data/rle.py`); the estimated poses load
+with `torch.load`.
 """
 
 from __future__ import annotations

@@ -61,6 +61,11 @@ class SummaryWriter:
         image_io.write_png(os.path.join(
             self.log_dir, f'{tag.replace("/", "_")}_{step}.png'), strip)
 
+    def flush(self):
+        self._jsonl.flush()
+        if self._tb is not None:
+            self._tb.flush()
+
     def close(self):
         self._jsonl.close()
         if self._tb is not None:
@@ -74,6 +79,9 @@ class NullWriter:
         pass
 
     def add_images(self, tag: str, images, step: int):
+        pass
+
+    def flush(self):
         pass
 
     def close(self):

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Whether PIL's and cv2's JPEG decoders give the same pixels on this
-machine.
+"""Whether the port's two JPEG readers give the same pixels on this
+machine: cv2, which `data/image_io.imread` calls as the JAX package does
+(`nerf_from_image_tpu/data/datasets.py:32-43`), and PIL, its fallback
+without cv2 (the JAX package's own branch without cv2).
 
-The port reads JPEG through PIL (`data/image_io.imread`); the JAX package
-reads it through cv2 (`nerf_from_image_tpu/data/datasets.py:32-41`).
 Writes JPEG files with PIL (RGB at odd and even sizes and a gray image;
 qualities 50-100; 4:2:0, 4:2:2 and 4:4:4 chroma; baseline and
 progressive) and one RGB file with cv2's own encoder, decodes each with
-`image_io.imread` and with cv2 as the JAX package calls it, and prints
+`image_io.imread` through cv2 and through the PIL fallback, and prints
 the versions, the number of files whose pixels differ and the largest
 difference in 8-bit levels as one JSON line. Exits 1 when cv2 or PIL is
 missing.
@@ -46,11 +46,13 @@ def _image(rng: np.random.Generator, shape) -> np.ndarray:
     return ((img[..., 0] if len(shape) == 2 else img) * 255).astype(np.uint8)
 
 
-def _cv2_read(cv2, path: str) -> np.ndarray:
-    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-    if img.ndim == 3:
-        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-    return img.astype(np.float64) / 255.0
+def _pil_read(path: str) -> np.ndarray:
+    """`image_io.imread` through its fallback, as without cv2."""
+    cv2, image_io.cv2 = image_io.cv2, None
+    try:
+        return image_io.imread(path)
+    finally:
+        image_io.cv2 = cv2
 
 
 def main() -> int:
@@ -77,7 +79,7 @@ def main() -> int:
                 Image.fromarray(img).save(
                     path, quality=quality, subsampling=subsampling,
                     progressive=progressive, optimize=progressive)
-            got, ref = image_io.imread(path), _cv2_read(cv2, path)
+            got, ref = image_io.imread(path), _pil_read(path)
             n_files += 1
             if got.shape != ref.shape or not np.array_equal(got, ref):
                 n_differ += 1

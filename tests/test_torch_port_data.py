@@ -1,12 +1,12 @@
 """The port's data layer against the JAX package's: the RLE codec, image
-reading (the port reads PNG itself and JPEG through PIL where JAX calls
-cv2), cv2's INTER_AREA resize in numpy, and `load_dataset` on fixtures of
-p3d_car (train and the car_val.mat test split, PNG and JPEG), SRN
-ShapeNet and CARLA, split by split.
+reading (both read through cv2, and through PIL without it), cv2's
+INTER_AREA resize, and `load_dataset` on fixtures of p3d_car (train and
+the car_val.mat test split, PNG and JPEG), SRN ShapeNet, CARLA and an
+ImageNet fixture holding a CMYK JPEG, split by split; the demo's photo
+as a CMYK JPEG.
 
 Tolerances: the codec and image reads are exact; a resize is within 1e-6
-of cv2's (cv2 tabulates its weights in float32 and sums in another
-order); every array of every split within 1e-6.
+of cv2's; every array of every split within 1e-6.
 """
 
 import os
@@ -27,6 +27,7 @@ from nerf_from_image_tpu_torch.data import rle
 from test_rle import _coco_compress
 
 RESIZE_ATOL = 1e-6
+JPEG_LOSS = 0.02  # mean absolute error of a quality-95 JPEG
 SPLIT_ATOL = 1e-6
 
 
@@ -156,19 +157,67 @@ def test_png_palette_and_gray_alpha_and_round_trip(tmp_path):
 
 
 def test_jpeg_reads_through_pil_or_raises(tmp_path, monkeypatch):
+    """As the JAX package reads: cv2 first, PIL without cv2, and
+    FileNotFoundError for a file cv2 cannot read."""
     from PIL import Image
     img = (np.random.default_rng(6).random((16, 24, 3)) * 255).astype(
         np.uint8)
     path = str(tmp_path / 'a.jpg')
     Image.fromarray(img).save(path, quality=90)
-    np.testing.assert_array_equal(image_io.imread(path),
-                                  jax_datasets.imread(path))
-    monkeypatch.setitem(__import__('sys').modules, 'PIL', None)
-    with pytest.raises(RuntimeError, match='a.jpg.*PIL'):
-        image_io.imread(path)
+    got = image_io.imread(path)
+    np.testing.assert_array_equal(got, jax_datasets.imread(path))
+    np.testing.assert_array_equal(
+        got, cv2.imread(path)[..., ::-1].astype(np.float64) / 255.0)
     (tmp_path / 'b.gif').write_bytes(b'GIF89a')
-    with pytest.raises(ValueError, match='b.gif'):
-        image_io.imread(str(tmp_path / 'b.gif'))
+    for module in (image_io, jax_datasets):
+        with pytest.raises(FileNotFoundError, match='b.gif'):
+            module.imread(str(tmp_path / 'b.gif'))
+    monkeypatch.setattr(image_io, 'cv2', None)
+    monkeypatch.setattr(jax_datasets, 'cv2', None)
+    got = image_io.imread(path)
+    np.testing.assert_array_equal(got, jax_datasets.imread(path))
+    np.testing.assert_array_equal(
+        got, np.asarray(Image.open(path)).astype(np.float64) / 255.0)
+
+
+def _write_cmyk_jpeg(path, rgb):
+    from PIL import Image
+    Image.fromarray(rgb).convert('CMYK').save(path, quality=95)
+
+
+def _write_png16(path, rgb):
+    cv2.imwrite(path, _bgr(rgb.astype(np.uint16) * 256 + 3))
+
+
+def _write_bmp(path, rgb):
+    cv2.imwrite(path, _bgr(rgb))
+
+
+def _write_gray_jpeg(path, rgb):
+    from PIL import Image
+    Image.fromarray(rgb[..., 1]).save(path, quality=90)
+
+
+@pytest.mark.parametrize('kind,write,shape', [
+    ('cmyk.jpg', _write_cmyk_jpeg, (20, 30, 3)),
+    ('rgb16.png', _write_png16, (20, 30, 3)),
+    ('rgb.bmp', _write_bmp, (20, 30, 3)),
+    ('gray.jpg', _write_gray_jpeg, (20, 30)),
+], ids=['cmyk_jpeg', 'png_16bit', 'bmp', 'gray_jpeg'])
+def test_reads_match_jax_exactly(tmp_path, kind, write, shape):
+    """Files the JAX package reads through cv2, read by the port equal,
+    exactly: a CMYK JPEG comes back RGB (ImageNet holds such files), a
+    16-bit PNG in uint16 levels / 255, as the reference's skimage read."""
+    rng = np.random.default_rng(len(kind))
+    rgb = (rng.random((20, 30, 3)) * 255).astype(np.uint8)
+    path = str(tmp_path / kind)
+    write(path, rgb)
+    got, ref = image_io.imread(path), jax_datasets.imread(path)
+    assert got.dtype == ref.dtype == np.float64
+    assert got.shape == ref.shape == shape
+    np.testing.assert_array_equal(got, ref)
+    if kind == 'rgb16.png':
+        assert got.max() > 1.0
 
 
 @pytest.mark.parametrize('shape', [(16, 24, 3), (17, 23, 3), (101, 77, 3),
@@ -310,26 +359,105 @@ def test_load_dataset_jpeg_matches_jax(tmp_path, extra):
     assert len((got[3] if extra else got[1]).images) == (4 if extra else 10)
 
 
-def test_cli_path_runs_without_cv2_pil_or_jax(tmp_path):
-    """The CLI's modules import, and a p3d_car fixture loads through them,
-    with cv2, PIL, JAX and the JAX package blocked (the card's machine
-    need not have them)."""
+@pytest.mark.parametrize('extra', [['--run_inversion'], []])
+def test_load_dataset_cmyk_jpeg_matches_jax(tmp_path, extra):
+    """An ImageNet fixture whose first image is a CMYK JPEG, as ImageNet's
+    train set holds some: the port reads it as RGB, as JAX's cv2 does;
+    every array of every split within 1e-6."""
+    import glob
+    from PIL import Image
+    data = str(tmp_path)
+    fixtures.write_imagenet(data, 'imagenet_car', 3, (48, 40), seed=7)
+    first = sorted(glob.glob(os.path.join(
+        data, 'imagenet', 'imagenet_car', 'images', '**', '*.jpg'),
+        recursive=True))[0]
+    _write_cmyk_jpeg(first, np.asarray(Image.open(first)))
+    assert Image.open(first).mode == 'CMYK'
+    argv = ['--dataset', 'imagenet_car', '--data_path', data,
+            '--resolution', '32'] + extra
+    got = loaders.load_dataset(config.parse_args(argv))
+    ref = jax_loaders.load_dataset(jax_config.parse_args(argv))
+    assert got[0] == ref[0]
+    for g, r in zip(got[1:], ref[1:]):
+        _assert_splits_equal(g, r)
+
+
+def test_demo_reads_a_cmyk_photo_as_rgb(tmp_path, capsys):
+    """The demo's photo as a CMYK JPEG: three channels within JPEG loss
+    of the RGB photo, its mask not taken from a fourth channel; image,
+    mask and bbox equal the JAX package's."""
+    from nerf_from_image_tpu.cli import demo as jax_demo
+    from nerf_from_image_tpu_torch.cli import demo
+    data = str(tmp_path / 'data')
+    fixtures.write_p3d_car(data, n_train=2, n_test=2, size=(48, 40))
+    rgb = image_io.read_png(os.path.join(data, fixtures.IMAGES_DIR,
+                                         'car_pascal', 'test_0000.png'))
+    path = str(tmp_path / 'photo.jpg')
+    _write_cmyk_jpeg(path, rgb)
+    got = demo.load_manual_image(path, 3)
+    assert 'alpha' not in capsys.readouterr().out
+    ref = jax_demo.load_manual_image(path, 3)
+    assert got['image'].shape == rgb.shape
+    assert np.abs(got['image'] - rgb / 255.0).mean() < JPEG_LOSS
+    for key in ('image', 'mask', 'bbox'):
+        np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+
+
+@pytest.mark.parametrize('blocked', [('cv2',), ('cv2', 'PIL')],
+                         ids=['pil', 'neither'])
+def test_cli_path_runs_without_cv2_pil_or_jax(tmp_path, monkeypatch,
+                                              blocked):
+    """The CLI's modules import with cv2, JAX and the JAX package blocked
+    (the card's machine has no JAX). A CARLA fixture then loads through
+    PIL, equal to the JAX package's own loader without cv2; a p3d_car
+    fixture raises TypeError in both, as PIL's box resize takes no
+    (H, W, 1) mask. With PIL blocked too, the read raises ImportError, as
+    the JAX package's does."""
     import subprocess
     import sys
+    out = str(tmp_path / 'splits.npz')
+    argvs = {name: ['--dataset', name, '--resolution', '32', '--data_path',
+                    str(tmp_path / name)] for name in ('carla', 'p3d_car')}
+    fixtures.write_carla(str(tmp_path / 'carla'), 3)
+    fixtures.write_p3d_car(str(tmp_path / 'p3d_car'), 3, 2, (40, 48))
     code = (
         "import sys\n"
-        "for name in ('cv2', 'PIL', 'jax', 'flax', 'nerf_from_image_tpu'):\n"
+        f"for name in {blocked + ('jax', 'flax', 'nerf_from_image_tpu')!r}:\n"
         "    sys.modules[name] = None\n"
+        "import numpy as np\n"
         "from nerf_from_image_tpu_torch.cli import run, inversion\n"
         "from nerf_from_image_tpu_torch import config\n"
-        "from nerf_from_image_tpu_torch.data import fixtures, loaders\n"
-        f"fixtures.write_p3d_car({str(tmp_path)!r}, 3, 2, (40, 48))\n"
-        "_, train, _, test = loaders.load_dataset(config.parse_args(\n"
-        "    ['--dataset', 'p3d_car', '--run_inversion', '--resolution',\n"
-        f"     '32', '--data_path', {str(tmp_path)!r}]))\n"
-        "print(len(train.images), len(test.images))\n")
+        "from nerf_from_image_tpu_torch.data import loaders\n"
+        f"for name, argv in {argvs!r}.items():\n"
+        "    try:\n"
+        "        splits = loaders.load_dataset(config.parse_args(argv))[1:]\n"
+        "    except (ImportError, TypeError) as e:\n"
+        "        print(name, type(e).__name__)\n"
+        "        continue\n"
+        "    print(name, 'loaded')\n"
+        f"    np.savez({out!r}, *[s.images for s in splits if s])\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, '-c', code], cwd=root,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ['6', '2']
+    monkeypatch.setattr(jax_datasets, 'cv2', None)
+    if 'PIL' in blocked:
+        assert proc.stdout.split() == ['carla', 'ModuleNotFoundError',
+                                       'p3d_car', 'ModuleNotFoundError']
+        monkeypatch.setitem(__import__('sys').modules, 'PIL', None)
+        for argv in argvs.values():
+            with pytest.raises(ImportError):
+                jax_loaders.load_dataset(jax_config.parse_args(argv))
+        return
+    assert proc.stdout.split() == ['carla', 'loaded', 'p3d_car',
+                                   'TypeError']
+    with pytest.raises(TypeError):
+        jax_loaders.load_dataset(jax_config.parse_args(argvs['p3d_car']))
+    ref = [s.images for s in jax_loaders.load_dataset(
+        jax_config.parse_args(argvs['carla']))[1:] if s]
+    got = np.load(out)
+    assert len(got.files) == len(ref) > 0
+    for i, b in enumerate(ref):
+        assert got[f'arr_{i}'].shape == b.shape
+        np.testing.assert_allclose(got[f'arr_{i}'], b, rtol=0,
+                                   atol=SPLIT_ATOL)

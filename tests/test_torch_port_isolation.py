@@ -114,8 +114,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
 
 def test_demo_runs_without_cv2_or_detectron2(tmp_path):
     """`cli/demo.py` imports cv2 and detectron2 only where it needs them:
-    with both blocked, a user's RGBA image still loads (its alpha is the
-    mask), and GrabCut and Mask R-CNN step aside (None)."""
+    with both blocked, a user's RGBA image still loads through PIL, as
+    the JAX package reads without cv2 (its alpha is the mask), and
+    GrabCut and Mask R-CNN step aside (None)."""
     from nerf_from_image_tpu_torch.data import image_io
     rgba = np.zeros((40, 40, 4), np.uint8)
     rgba[..., :3] = 128

@@ -559,3 +559,29 @@ def test_unported_training_branches_raise(extra, match, monkeypatch):
     with pytest.raises(Reached if match is None else layout_error(extra),
                        match=match):
         cli_run.main(['--dataset', 'p3d_car'] + extra, device='cpu')
+
+
+def test_summary_writer_flush_matches_jax(tmp_path):
+    """`flush` writes the buffered TensorBoard events out before `close`,
+    as the JAX package's does: both events files grow, and both JSONL
+    logs hold the same rows; a `NullWriter` flushes nothing."""
+    import glob
+    from nerf_from_image_tpu.utils.logging import \
+        SummaryWriter as JaxSummaryWriter
+    from nerf_from_image_tpu_torch.utils.logging import NullWriter
+    from nerf_from_image_tpu_torch.utils.logging import SummaryWriter
+    rows, grew = {}, {}
+    for side, cls in (('port', SummaryWriter), ('jax', JaxSummaryWriter)):
+        writer = cls(str(tmp_path / side))
+        events, = glob.glob(str(tmp_path / side / 'events.out.tfevents.*'))
+        before = os.path.getsize(events)
+        writer.add_scalar('Loss/G', 0.25, 3)
+        writer.flush()
+        grew[side] = os.path.getsize(events) > before
+        with open(tmp_path / side / 'scalars.jsonl') as f:
+            rows[side] = [(r['tag'], r['value'], r['step'])
+                          for r in map(json.loads, f)]
+        writer.close()
+    assert grew == {'port': True, 'jax': True}
+    assert rows['port'] == rows['jax'] == [('Loss/G', 0.25, 3)]
+    NullWriter().flush()
